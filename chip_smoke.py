@@ -1,21 +1,31 @@
 """Smoke run of the torch port (slam_tricks_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 From the root of a checkout: builds the CUDA kernels from the sources in
 slam_tricks_tpu_torch/csrc, holds each against its plain torch version at the
-shapes of the headline solve, checks the solve through the kernels against
-the CPU path on a small scene, then drives the headline bundle adjustment
-(st20 cube room: 96 cameras, 2400 landmarks, 83,338 observations, 20 LM
-iterations, float32, TF32 off) through the kernels and checks that it
-converged. Prints one line per phase, then a JSON line with each kernel's
-launches, error and times (CUDA events, median of rounds), the card's name
-and power limit from nvidia-smi, and last the JSON status line.
+shapes of the paths that run it, checks small solves through the kernels
+against the CPU path, then drives the port's three paths through the
+kernels, each with every launch count set to 0 just before it:
+
+- A, the headline bundle adjustment (st20 cube room: 96 cameras, 2400
+  landmarks, 83,338 observations, 20 LM iterations, float32, TF32 off);
+- B, the large-C trajectory bundle adjustment (1024 cameras, 200,000
+  landmarks, tracks of 8, 1,600,000 observations, 12 LM iterations, float32,
+  TF32 off), whose reduced camera system is block-tridiagonal;
+- E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps;
+
+and checks what each returns. Prints one line per phase, then a JSON line
+with each kernel's launches, error, times (CUDA events, median of rounds),
+bound and library time, the card's name and power limit from nvidia-smi,
+and last the JSON status line. With --profile DIR it also writes
+torch.profiler tables of paths A and B to DIR.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
 """
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -29,8 +39,18 @@ ROOT = Path(__file__).resolve().parent
 ASSEMBLE_REL_TOL = 1e-4     # per output, max |k - p| / max |p|: f32 atomics
 SPD_RES_FACTOR = 10.0       # kernel residual <= this x the plain one (+ eps)
 SPD_RANDOM_REL_TOL = 5e-6   # x vs plain x on a well-conditioned SPD matrix
+TRI_RES_FACTOR = 10.0       # tridiag residual <= this x the plain one (+ eps)
+TRI_RANDOM_REL_TOL = 1e-4   # x vs plain x on the well-conditioned system
 FINAL_COST_MAX = 0.05       # both known basins (~1e-10, ~2.5e-2) are below
+B_FINAL_COST_MAX = 1e-4     # path B starts at ~1e3
 SMALL_POSE_TOL = 1e-8       # f64 small-scene poses, card vs CPU
+UNDISTORT_TOL = 2.5e-4      # px, kernel vs plain, f32 (a few ulp at 700 px)
+ROUND_TRIP_TOL = 1e-3       # px, |undistort(distort(px)) - px|, f32
+
+# peaks of one H100 SXM (NVIDIA's data sheet): the bound of each kernel,
+# all of which run in float32 outside the tensor cores here
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def _log(phase, msg):
@@ -57,9 +77,9 @@ def _time_ms(fn, rounds=5, reps=10):
     return statistics.median(times)
 
 
-def _paired_ms(kernel, plain):
+def _paired_ms(kernel, plain, **kw):
     """Kernel and plain times taken in turns: plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (_time_ms(f) for f in (plain, kernel, kernel, plain))
+    p1, k1, k2, p2 = (_time_ms(f, **kw) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -67,7 +87,55 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, flops):
+    """The least time in ms the card could take: bytes over the memory rate
+    or float32 operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _reset_counts(*mods):
+    for mod in mods:
+        mod.LAUNCHES = 0
+
+
+def _check_costs(c, max_final, label):
+    if not all(v == v and abs(v) != float("inf") for v in c):
+        raise AssertionError(f"{label}: non-finite cost: {c}")
+    if any(b > a for a, b in zip(c, c[1:])):
+        raise AssertionError(f"{label}: cost increased: {c}")
+    if not c[-1] < max_final:
+        raise AssertionError(f"{label}: final cost {c[-1]} >= {max_final}")
+
+
+def _profile(fn, path, label):
+    """torch.profiler table (CUDA time by kernel) of one call of fn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    path.write_text(table)
+    _log("profile", f"{label}: {path}")
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", type=Path, default=None,
+                    help="write torch.profiler tables of paths A and B here")
+    args = ap.parse_args()
+
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -80,10 +148,17 @@ def main():
     if Path(slam_tricks_tpu_torch.__file__).resolve().parents[1] != ROOT:
         raise SystemExit("chip_smoke: imported slam_tricks_tpu_torch from "
                          f"{slam_tricks_tpu_torch.__file__}, not this checkout")
-    from slam_tricks_tpu_torch.ops import _build, ba_assemble, spd_solve
-    from slam_tricks_tpu_torch.sim import make_scene, perturb_scene
-    from slam_tricks_tpu_torch.solvers import schur_flat_sm
+    from slam_tricks_tpu_torch.ops import (_build, ba_assemble, spd_solve,
+                                           tridiag_solve, undistort)
+    from slam_tricks_tpu_torch.residuals import camera
+    from slam_tricks_tpu_torch.sim import (make_scene, make_trajectory_scene,
+                                           perturb_scene)
+    from slam_tricks_tpu_torch.solvers import banded_flat, schur_flat_sm
     from slam_tricks_tpu_torch.solvers.common import set_full_precision
+
+    ops = (ba_assemble, spd_solve, tridiag_solve, undistort)
+    if args.profile is not None:
+        args.profile.mkdir(parents=True, exist_ok=True)
 
     # ---- 1. device ----
     smi = subprocess.run(
@@ -95,47 +170,63 @@ def main():
     _log("device", f"{kind}; torch {torch.__version__}, CUDA "
                    f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
     set_full_precision()
+    f32, f64 = torch.float32, torch.float64
 
     # ---- 2. build ----
     t0 = time.perf_counter()
     _build.library()
     _log("build", f"{_build.library_path().name} in "
                   f"{time.perf_counter() - t0:.2f} s "
-                  f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+                  f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process a source)")
+
+    def check_assemble(args_, label):
+        """Kernel 1 against plain on args_; returns (max |k - p|, ms,
+        plain ms, bound ms, bound_by)."""
+        out_k = ba_assemble.linearize_assemble(*args_)
+        out_p = ba_assemble.linearize_assemble_plain(*args_)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
+                              out_k, out_p):
+            rel = _rel(a, b)
+            err = max(err, float((a - b).abs().max()))
+            _log("ba_assemble", f"{label} {name} {tuple(a.shape)} max rel err "
+                                f"{rel:.3e}")
+            if not rel <= ASSEMBLE_REL_TOL:
+                raise AssertionError(f"ba_assemble {label} {name}: rel err "
+                                     f"{rel} > {ASSEMBLE_REL_TOL}")
+        ms, plain_ms = _paired_ms(
+            lambda: ba_assemble.linearize_assemble(*args_),
+            lambda: ba_assemble.linearize_assemble_plain(*args_))
+        live = int((args_[5] > 0).sum())
+        bound_ms, bound_by = _bound(
+            _nbytes(*args_, *out_k[:4]) + _nbytes(out_k[4]),
+            live * ba_assemble.FLOPS_PER_SLOT)
+        _log("ba_assemble", f"{label}: kernel {ms:.4f} ms, plain torch "
+                            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                            f"({bound_by})")
+        return err, ms, plain_ms, bound_ms, bound_by
 
     # ---- 3. kernel 1: linearize + assemble at the headline shapes ----
-    f32 = torch.float32
     scene = make_scene(n_per_wall=400, n_cams=96, seed=0, dtype=f32, device=dev)
     poses0, points0, fixed = perturb_scene(scene, seed=1)
     work = schur_flat_sm.build_slot_work(scene.obs, scene.n_cams,
                                          scene.n_points, dtype=f32)
     C, L, K = scene.n_cams, scene.n_points, work.w.shape[0]
     n_obs = int((scene.obs.weight > 0).sum())
-    _log("scene", f"C={C} L={L} K={K} live observations={n_obs}")
-    args = (poses0.R.reshape(C, 9), poses0.t, points0, work.uv0, work.uv1,
-            work.w, work.cam_of_slot)
-    out_k = ba_assemble.linearize_assemble(*args)
-    out_p = ba_assemble.linearize_assemble_plain(*args)
-    torch.cuda.synchronize()
-    k1_abs = 0.0
-    for name, a, b in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"), out_k, out_p):
-        rel = _rel(a, b)
-        k1_abs = max(k1_abs, float((a - b).abs().max()))
-        _log("ba_assemble", f"{name} {tuple(a.shape)} max rel err {rel:.3e}")
-        if not rel <= ASSEMBLE_REL_TOL:
-            raise AssertionError(f"ba_assemble {name}: rel err {rel} > "
-                                 f"{ASSEMBLE_REL_TOL}")
-    k1_ms, k1_plain_ms = _paired_ms(
-        lambda: ba_assemble.linearize_assemble(*args),
-        lambda: ba_assemble.linearize_assemble_plain(*args))
-    _log("ba_assemble", f"kernel {k1_ms:.4f} ms, plain torch {k1_plain_ms:.4f} ms")
+    _log("scene A", f"C={C} L={L} K={K} live observations={n_obs}")
+    args_a = (poses0.R.reshape(C, 9), poses0.t, points0, work.uv0, work.uv1,
+              work.w, work.cam_of_slot)
+    k1 = dict(zip(("err", "ms", "plain_ms", "bound_ms", "bound_by"),
+                  check_assemble(args_a, "path A")))
 
     # ---- 4. kernel 2: SPD solve of the first step's S (n = 6C) ----
+    out_p = ba_assemble.linearize_assemble_plain(*args_a)
     lam = torch.tensor(1e-4, dtype=f32, device=dev)
     S, b, *_ = schur_flat_sm.reduced_camera_system(*out_p[:5], lam, fixed, work)
     rng = torch.Generator(device="cpu").manual_seed(0)
-    A = torch.randn(6 * C, 6 * C, generator=rng, dtype=torch.float64)
-    S_rand = (A @ A.T + 6 * C * torch.eye(6 * C, dtype=torch.float64)).to(dev, f32)
+    A = torch.randn(6 * C, 6 * C, generator=rng, dtype=f64)
+    S_rand = (A @ A.T + 6 * C * torch.eye(6 * C, dtype=f64)).to(dev, f32)
     b_rand = torch.randn(6 * C, generator=rng).to(dev, f32)
     k2_abs = 0.0
     for label, S_, b_ in (("BA S", S, b), ("random SPD", S_rand, b_rand)):
@@ -157,81 +248,285 @@ def main():
             raise AssertionError(f"spd_solve {label}: |x - x_plain| rel {diff}")
     k2_ms, k2_plain_ms = _paired_ms(lambda: spd_solve.spd_solve(S, b),
                                     lambda: spd_solve.spd_solve_plain(S, b))
+    k2_lib_ms = _time_ms(lambda: torch.cholesky_solve(
+        b[:, None], torch.linalg.cholesky_ex(S)[0]))
+    n = S.shape[0]
+    k2_bound, k2_by = _bound(_nbytes(S, b, b), n ** 3 / 3 + 2 * n ** 2)
     _log("spd_solve", f"kernel {k2_ms:.4f} ms, plain torch (cholesky_ex + "
-                      f"cholesky_solve) {k2_plain_ms:.4f} ms")
+                      f"cholesky_solve) {k2_plain_ms:.4f} ms, library "
+                      f"{k2_lib_ms:.4f} ms, bound {k2_bound:.5f} ms ({k2_by})")
 
     # ---- 5. reference: a small f64 scene through the kernels vs the CPU ----
-    small = dict(n_per_wall=60, n_cams=16, seed=3, dtype=torch.float64)
+    small = dict(n_per_wall=60, n_cams=16, seed=3, dtype=f64)
     results = []
     for device in ("cpu", dev):
         sc = make_scene(device=device, **small)
         p0, x0, fx = perturb_scene(sc, seed=4)
         wk = schur_flat_sm.build_slot_work(sc.obs, sc.n_cams, sc.n_points,
-                                           dtype=torch.float64)
+                                           dtype=f64)
         results.append(schur_flat_sm.solve_ba_flat_sm(p0, x0, wk, fixed_mask=fx,
                                                       max_iters=15))
     ref, got = results
     perr = float((got.poses.t.cpu() - ref.poses.t).abs().max())
-    _log("reference", f"16 cameras f64: card {got.it} iterations cost "
-                      f"{float(got.cost):.3e}, CPU {ref.it} iterations cost "
-                      f"{float(ref.cost):.3e}; max pose diff {perr:.3e}")
+    _log("reference A", f"16 cameras f64: card {got.it} iterations cost "
+                        f"{float(got.cost):.3e}, CPU {ref.it} iterations cost "
+                        f"{float(ref.cost):.3e}; max pose diff {perr:.3e}")
     if got.it != ref.it or not perr <= SMALL_POSE_TOL:
         raise AssertionError("card and CPU solves of the small scene differ")
 
-    # ---- 6. the main path: headline solve through the kernels ----
-    schur_flat_sm.solve_ba_flat_sm(poses0, points0, work, fixed_mask=fixed,
-                                   max_iters=2)      # warm-up
+    # ---- 6. path A: headline solve through the kernels ----
+    solve_a = lambda iters, costs=None: schur_flat_sm.solve_ba_flat_sm(  # noqa: E731
+        poses0, points0, work, fixed_mask=fixed, max_iters=iters, costs=costs)
+    solve_a(2)      # warm-up
     torch.cuda.synchronize()
-    ba_assemble.LAUNCHES = 0
-    spd_solve.LAUNCHES = 0
+    _reset_counts(*ops)
     costs = []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    final = schur_flat_sm.solve_ba_flat_sm(poses0, points0, work,
-                                           fixed_mask=fixed, max_iters=20,
-                                           costs=costs)
+    final = solve_a(20, costs)
     end.record()
     end.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"ba_assemble": ba_assemble.LAUNCHES,
-                "spd_solve": spd_solve.LAUNCHES}
-    ms_per_iter = start.elapsed_time(end) / max(final.it, 1)
+    launches_a = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in ops}
+    ms_per_iter_a = start.elapsed_time(end) / max(final.it, 1)
     c = [float(v) for v in costs]
-    _log("solve", f"{final.it} LM iterations, cost {c[0]:.6e} -> {c[-1]:.6e}; "
-                  f"launches {launches}; {ms_per_iter:.4f} ms per LM iteration "
-                  f"(CUDA events; host wall {wall_s:.3f} s)")
-    _log("solve", "costs " + " ".join(f"{v:.4e}" for v in c))
+    _log("path A", f"{final.it} LM iterations, cost {c[0]:.6e} -> {c[-1]:.6e};"
+                   f" launches {launches_a}; {ms_per_iter_a:.4f} ms per LM "
+                   f"iteration (CUDA events; host wall {wall_s:.3f} s)")
+    _log("path A", "costs " + " ".join(f"{v:.4e}" for v in c))
     basin = ("global (~1e-10)" if c[-1] < 1e-6 else "local (~2.5e-2)")
-    _log("solve", f"basin reached: {basin}")
-    if launches["ba_assemble"] < 21 or launches["spd_solve"] < 20:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), c)):
-        raise AssertionError(f"non-finite cost: {c}")
-    if any(b2 > a2 for a2, b2 in zip(c, c[1:])):
-        raise AssertionError(f"cost increased: {c}")
-    if not c[-1] < FINAL_COST_MAX:
-        raise AssertionError(f"final cost {c[-1]} >= {FINAL_COST_MAX}")
+    _log("path A", f"basin reached: {basin}")
+    if launches_a["ba_assemble"] < 21 or launches_a["spd_solve"] < 20:
+        raise AssertionError(f"path A skipped a kernel: {launches_a}")
+    _check_costs(c, FINAL_COST_MAX, "path A")
     if (final.poses.R.shape != (C, 3, 3) or final.points.shape != (L, 3)
             or not torch.isfinite(final.points).all()
             or not torch.isfinite(final.poses.R).all()):
-        raise AssertionError("solve returned malformed or non-finite state")
+        raise AssertionError("path A returned malformed or non-finite state")
+    if args.profile is not None:
+        _profile(lambda: solve_a(5), args.profile / "path_a.txt",
+                 "path A, 5 LM iterations")
+    final_a_cost = c[-1]
+
+    # ---- 7. path B scene: the large-C trajectory problem ----
+    t0 = time.perf_counter()
+    tscene = make_trajectory_scene(n_cams=1024, n_points=200_000, track_len=8,
+                                   seed=11, dtype=f32, device=dev)
+    tposes0, tpoints0, tfixed = perturb_scene(
+        tscene, pose_rot_noise=0.002, pose_trans_noise=0.01, point_noise=0.01,
+        seed=12)
+    bw = banded_flat.build_banded_work(tscene.obs, tscene.n_cams,
+                                       tscene.n_points, dtype=f32)
+    torch.cuda.synchronize()
+    setup_b_s = time.perf_counter() - t0
+    CB, LB_, KB = bw.n_cams, bw.n_points, bw.w.shape[0]
+    LpadB = bw.w.shape[1]
+    n_obs_b = int((bw.w > 0).sum())
+    _log("scene B", f"C={CB} L={LB_} K={KB} Lpad={LpadB} live observations="
+                    f"{n_obs_b}; set-up (scene, perturbation, layout) "
+                    f"{setup_b_s:.2f} s")
+
+    # ---- 8. kernel 1 at path B's shapes ----
+    tpoints_s = tpoints0[bw.gather_idx]
+    args_b = (tposes0.R.reshape(CB, 9), tposes0.t, tpoints_s, bw.uv0, bw.uv1,
+              bw.w, bw.cam_of_slot)
+    k1b = dict(zip(("err", "ms", "plain_ms", "bound_ms", "bound_by"),
+                   check_assemble(args_b, "path B")))
+
+    # ---- 9. kernel 3: block-tridiagonal solve ----
+    Gt, mt = 128, 48        # the system of bench.py:stage_tridiag_ab
+    rng_np = np.random.default_rng(0)
+    Gm = rng_np.normal(size=(Gt, mt, mt + 8))
+    Dt = torch.as_tensor(Gm @ Gm.transpose(0, 2, 1) + 8 * np.eye(mt)[None],
+                         dtype=f32, device=dev)
+    Et = torch.as_tensor(0.3 * rng_np.normal(size=(Gt - 1, mt, mt)),
+                         dtype=f32, device=dev)
+    rt = torch.as_tensor(rng_np.normal(size=(Gt, mt)), dtype=f32, device=dev)
+    blocks_b = ba_assemble.linearize_assemble_plain(*args_b)[:5]
+    Dm, Em, rm, *_ = banded_flat.reduced_camera_system(*blocks_b, lam, tfixed,
+                                                       bw)
+    del blocks_b
+
+    def dense(D, E):
+        G, m = D.shape[0], D.shape[1]
+        T = torch.zeros((G, m, G, m), dtype=f64, device=dev)
+        gi = torch.arange(G, device=dev)
+        T[gi, :, gi, :] = D.double()
+        if G > 1:
+            T[gi[:-1] + 1, :, gi[:-1], :] = E.double()
+            T[gi[:-1], :, gi[:-1] + 1, :] = E.double().transpose(1, 2)
+        return T.reshape(G * m, G * m)
+
+    k3_abs = 0.0
+    for label, D_, E_, r_ in (("stage_tridiag_ab", Dt, Et, rt),
+                              ("path B first step", Dm, Em, rm)):
+        x_k = tridiag_solve.tridiag_solve(D_, E_, r_)
+        x_p = tridiag_solve.tridiag_solve_plain(D_, E_, r_)
+        torch.cuda.synchronize()
+        T64, r64 = dense(D_, E_), r_.double().reshape(-1)
+        res_k = float((T64 @ x_k.double().reshape(-1) - r64).norm() / r64.norm())
+        res_p = float((T64 @ x_p.double().reshape(-1) - r64).norm() / r64.norm())
+        diff = _rel(x_k, x_p)
+        k3_abs = max(k3_abs, float((x_k - x_p).abs().max()))
+        _log("tridiag_solve", f"{label} (G, m)={tuple(D_.shape[:2])}: "
+                              f"|Tx-r|/|r| kernel {res_k:.3e} plain {res_p:.3e};"
+                              f" max|x-x_plain|/max|x_plain| {diff:.3e}")
+        if not res_k <= TRI_RES_FACTOR * res_p + 1e-6:
+            raise AssertionError(f"tridiag_solve {label}: residual {res_k} > "
+                                 f"{TRI_RES_FACTOR} x plain {res_p} + 1e-6")
+        if label == "stage_tridiag_ab" and not diff <= TRI_RANDOM_REL_TOL:
+            raise AssertionError(f"tridiag_solve {label}: rel diff {diff}")
+    Tdense = dense(Dm, Em).float()
+    rdense = rm.reshape(-1, 1)
+    k3_ms, k3_plain_ms = _paired_ms(
+        lambda: tridiag_solve.tridiag_solve(Dm, Em, rm),
+        lambda: tridiag_solve.tridiag_solve_plain(Dm, Em, rm), reps=3)
+    k3_lib_ms = _time_ms(lambda: torch.cholesky_solve(
+        rdense, torch.linalg.cholesky_ex(Tdense)[0]), reps=3)
+    del Tdense
+    Gb, mb = Dm.shape[0], Dm.shape[1]
+    k3_bound, k3_by = _bound(_nbytes(Dm, Em, rm, rm),
+                             tridiag_solve.flops(Gb, mb))
+    _log("tridiag_solve", f"path B shape (G, m)=({Gb}, {mb}): kernel "
+                          f"{k3_ms:.4f} ms, plain torch {k3_plain_ms:.4f} ms, "
+                          f"library (cholesky_ex + cholesky_solve of the dense "
+                          f"{Gb * mb}^2 matrix) {k3_lib_ms:.4f} ms, bound "
+                          f"{k3_bound:.5f} ms ({k3_by})")
+
+    # ---- 10. reference: a small f64 trajectory solve, card vs CPU ----
+    results = []
+    for device in ("cpu", dev):
+        sc = make_trajectory_scene(n_cams=32, n_points=600, track_len=6,
+                                   seed=71, pix_noise=1e-3, dtype=f64,
+                                   device=device)
+        p0, x0, fx = perturb_scene(sc, pose_rot_noise=0.002,
+                                   pose_trans_noise=0.01, point_noise=0.01,
+                                   seed=72)
+        wk = banded_flat.build_banded_work(sc.obs, sc.n_cams, sc.n_points,
+                                           dtype=f64)
+        results.append(banded_flat.solve_ba_banded(p0, x0, wk, fixed_mask=fx,
+                                                   max_iters=6))
+    ref, got = results
+    perr = float((got.poses.t.cpu() - ref.poses.t).abs().max())
+    _log("reference B", f"32 cameras f64: card {got.it} iterations cost "
+                        f"{float(got.cost):.6e}, CPU {ref.it} iterations cost "
+                        f"{float(ref.cost):.6e}; max pose diff {perr:.3e}")
+    if got.it != ref.it or not perr <= SMALL_POSE_TOL:
+        raise AssertionError("card and CPU trajectory solves differ")
+
+    # ---- 11. path B: the large-C trajectory solve through the kernels ----
+    solve_b = lambda iters, costs=None: banded_flat.solve_ba_banded(  # noqa: E731
+        tposes0, tpoints0, bw, fixed_mask=tfixed, max_iters=iters, costs=costs)
+    solve_b(2)      # warm-up
+    torch.cuda.synchronize()
+    _reset_counts(*ops)
+    costs = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    final = solve_b(12, costs)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches_b = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in ops}
+    ms_per_iter_b = start.elapsed_time(end) / max(final.it, 1)
+    c = [float(v) for v in costs]
+    _log("path B", f"{final.it} LM iterations, cost {c[0]:.6e} -> {c[-1]:.6e};"
+                   f" launches {launches_b}; {ms_per_iter_b:.4f} ms per LM "
+                   f"iteration (CUDA events; host wall {wall_s:.3f} s)")
+    _log("path B", "costs " + " ".join(f"{v:.4e}" for v in c))
+    if (launches_b["tridiag_solve"] < max(final.it, 12)
+            or launches_b["ba_assemble"] < max(final.it + 1, 13)):
+        raise AssertionError(f"path B skipped a kernel: {launches_b}")
+    _check_costs(c, B_FINAL_COST_MAX, "path B")
+    if (final.poses.R.shape != (CB, 3, 3) or final.points.shape != (LB_, 3)
+            or not torch.isfinite(final.points).all()
+            or not torch.isfinite(final.poses.R).all()):
+        raise AssertionError("path B returned malformed or non-finite state")
+    if args.profile is not None:
+        _profile(lambda: solve_b(3), args.profile / "path_b.txt",
+                 "path B, 3 LM iterations")
+    final_b_cost = c[-1]
+    del args_b, tpoints_s
+
+    # ---- 12. path E: undistortion of 8,388,608 pixels ----
+    npx = 8_388_608         # bench.py:stage_undistort
+    intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
+    dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
+                             1.76187114e-05)
+    params = tuple(intr) + tuple(dist)
+    px = torch.as_tensor(np.random.default_rng(3).uniform(
+        [50, 50], [700, 430], (npx, 2)), dtype=f32, device=dev)
+    dist_px = camera.distort_pixels(intr, dist, px).contiguous()
+    torch.cuda.synchronize()
+    _reset_counts(*ops)
+    und = camera.undistort_points_fast(intr, dist, dist_px)
+    torch.cuda.synchronize()
+    launches_e = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in ops}
+    plain = undistort.undistort_plain(dist_px, params)
+    k4_abs = float((und - plain).abs().max())
+    trip = float((und - px).abs().max())
+    _log("path E", f"{npx} px f32, 5 Newton steps: launches {launches_e}; "
+                   f"max |kernel - plain| {k4_abs:.3e} px, round trip max "
+                   f"|undistort(distort(px)) - px| {trip:.3e} px")
+    if launches_e["undistort"] < 1:
+        raise AssertionError(f"path E skipped the kernel: {launches_e}")
+    if (und.shape != (npx, 2) or not torch.isfinite(und).all()
+            or not k4_abs <= UNDISTORT_TOL or not trip <= ROUND_TRIP_TOL):
+        raise AssertionError(f"path E: kernel error {k4_abs} px (bound "
+                             f"{UNDISTORT_TOL}), round trip {trip} px (bound "
+                             f"{ROUND_TRIP_TOL})")
+    k4_ms, k4_plain_ms = _paired_ms(
+        lambda: undistort.undistort(dist_px, params),
+        lambda: undistort.undistort_plain(dist_px, params))
+    k4_bound, k4_by = _bound(
+        2 * _nbytes(dist_px),
+        npx * (5 * undistort.FLOPS_PER_STEP + undistort.FLOPS_PER_PIXEL))
+    _log("path E", f"kernel {k4_ms:.4f} ms ({npx / k4_ms * 1e3:.4e} px/s), "
+                   f"plain torch {k4_plain_ms:.4f} ms, bound {k4_bound:.4f} "
+                   f"ms ({k4_by})")
 
     kernels = [
         {"name": "ba_assemble", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/ba_assemble.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_ba.py:47",
-         "launches": launches["ba_assemble"], "max_abs_err": k1_abs,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": launches_a["ba_assemble"] + launches_b["ba_assemble"],
+         "launches_by_path": {"A": launches_a["ba_assemble"],
+                              "B": launches_b["ba_assemble"]},
+         "max_abs_err": max(k1["err"], k1b["err"]),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None,
+         "path_b": {"ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
+                    "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"]}},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
-         "launches": launches["spd_solve"], "max_abs_err": k2_abs,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": launches_a["spd_solve"], "max_abs_err": k2_abs,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": k2_lib_ms},
+        {"name": "tridiag_solve", "route": "cuda",
+         "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
+         "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",
+         "launches": launches_b["tridiag_solve"], "max_abs_err": k3_abs,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib_ms},
+        {"name": "undistort", "route": "cuda",
+         "source": "slam_tricks_tpu_torch/csrc/undistort.cu",
+         "replaces": "slam_tricks_tpu/ops/pallas_undistort.py:23",
+         "launches": launches_e["undistort"], "max_abs_err": k4_abs,
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_by, "library_ms": None},
     ]
-    print(json.dumps({"kernels": kernels, "ms_per_lm_iter": ms_per_iter,
-                      "lm_iters": final.it, "final_cost": c[-1]}), flush=True)
+    print(json.dumps({"kernels": kernels,
+                      "ms_per_lm_iter": ms_per_iter_a,
+                      "ms_per_lm_iter_b": ms_per_iter_b,
+                      "final_cost": final_a_cost,
+                      "final_cost_b": final_b_cost,
+                      "undistort_px_per_s": npx / k4_ms * 1e3}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

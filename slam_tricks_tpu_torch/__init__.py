@@ -4,14 +4,21 @@ The JAX package beside it is the reference: each module here mirrors the
 module of the same path there and is tested against it on the CPU. The port
 imports torch and numpy only, never jax.
 
-Slice A, the headline bundle-adjustment solve:
+The paths ported so far: A, the headline bundle adjustment
+(``solvers.schur_flat_sm``); B, the large-C trajectory bundle adjustment
+(``solvers.banded_flat``); E, the st1 undistortion
+(``residuals.camera.undistort_points_fast``).
 
 - ``manifolds``  SO(3) and SE(3), batched over a leading dimension
-- ``sim``        the st20 cube-room scene (numpy core, torch tensors out)
-- ``solvers``    ``schur_flat_sm.solve_ba_flat_sm`` (LM with Schur elimination)
+- ``sim``        the st20 cube-room and trajectory scenes (numpy core, torch
+                 tensors out, on the card unless ``device="cpu"``)
+- ``solvers``    ``schur_flat_sm.solve_ba_flat_sm`` and
+                 ``banded_flat.solve_ba_banded`` (LM with Schur elimination)
+- ``residuals``  ``camera``: pinhole intrinsics, radial-tangential distortion
 - ``ops``        the hand-written CUDA kernels and their plain torch versions:
                  ``ba_assemble`` (linearize + assemble), ``spd_solve``
-                 (reduced camera system)
+                 (reduced camera system), ``tridiag_solve`` (block-tridiagonal
+                 reduced camera system), ``undistort`` (Newton undistortion)
 - ``interop``    numpy / JAX-package state -> the port's tensors
 
 Importing the package needs neither CUDA nor ``nvcc``: the kernels are built

@@ -1,41 +1,77 @@
 """The JAX package's state as the port's tensors.
 
 Each function takes the JAX package's objects (``se3.SE3``,
-``BAObservations``, ``schur_flat_sm.SlotWork``) or anything else whose
+``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
+``camera.Intrinsics``, ``camera.DistCoeffs``) or anything else whose
 fields numpy can read, copies every array through numpy and returns the
-port's counterpart on `device`. Nothing here imports jax: a JAX array is
+port's counterpart on `device`, the card unless the caller names another
+(``device="cpu"``). Nothing here imports jax: a JAX array is
 read as a numpy array.
 """
 
 import numpy as np
 import torch
 
+from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.manifolds.se3 import SE3
+from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
+from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork
 from slam_tricks_tpu_torch.solvers.schur_flat_sm import SlotWork
 
 
-def tensor(a, device="cpu"):
-    """A copy of the array `a` as a tensor on `device`, dtype kept."""
-    return torch.as_tensor(np.array(a), device=device)
+def tensor(a, device=None):
+    """A copy of the array `a` as a tensor on `device` (the card unless the
+    caller names another), dtype kept."""
+    return torch.as_tensor(np.array(a), device=resolve(device))
 
 
-def poses_from_jax(poses, device="cpu"):
+def poses_from_jax(poses, device=None):
     """SE3 with R (C, 3, 3), t (C, 3)."""
     return SE3(tensor(poses.R, device), tensor(poses.t, device))
 
 
-def obs_from_jax(obs, device="cpu"):
+def obs_from_jax(obs, device=None):
     return BAObservations(cam_idx=tensor(obs.cam_idx, device),
                           lm_idx=tensor(obs.lm_idx, device),
                           uv=tensor(obs.uv, device),
                           weight=tensor(obs.weight, device))
 
 
-def slot_work_from_jax(work, device="cpu"):
+def slot_work_from_jax(work, device=None):
     """The JAX SlotWork's slot grid; its camera one-hot or gather table is
     not carried over (the port gathers with cam_of_slot)."""
     return SlotWork(uv0=tensor(work.uv0, device), uv1=tensor(work.uv1, device),
                     w=tensor(work.w, device), mask=tensor(work.mask, device),
                     cam_of_slot=tensor(work.cam_of_slot, device),
                     n_cams=int(work.n_cams))
+
+
+def banded_work_from_jax(work, n_points, device=None):
+    """The JAX BandedWork's slot grid, indices and chunk cameras; its
+    (chunks, C) one-hot becomes each chunk's first camera (its argmax)."""
+    onehot = np.array(work.onehot)
+    uv = np.array(work.uv)                           # (K, 2, Lpad)
+    K, Lpad = uv.shape[0], uv.shape[2]
+    C = onehot.shape[1]
+    c0 = np.argmax(onehot, axis=1).astype(np.int64)   # (chunks,)
+    slot_c0 = np.repeat(c0, Lpad // c0.shape[0])
+    cam_of_slot = (slot_c0[None, :] + np.arange(K)[:, None]) % C
+    return BandedWork(
+        uv0=tensor(uv[:, 0], device), uv1=tensor(uv[:, 1], device),
+        w=tensor(work.weight, device),
+        cam_of_slot=tensor(cam_of_slot.astype(np.int32), device),
+        c0=tensor(c0, device),
+        scatter_idx=tensor(np.array(work.scatter_idx).astype(np.int64), device),
+        gather_idx=tensor(np.array(work.gather_idx).astype(np.int64), device),
+        n_cams=C, n_points=int(n_points))
+
+
+def intrinsics_from_jax(intr, device=None):
+    """Intrinsics of 0-d tensors."""
+    return Intrinsics(*(tensor(v, device) for v in intr))
+
+
+def dist_from_jax(dist, device=None):
+    """DistCoeffs of 0-d tensors."""
+    return DistCoeffs(*(tensor(v, device) for v in dist))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
-library with a plain C interface, ``build/kernels/libslam_kernels_<hash>.so``
-at the root of the checkout, at the first call of ``library()``. The hash
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process a source,
+all started together, and links the objects into one shared library with a
+plain C interface, ``build/kernels/libslam_kernels_<hash>.so`` at the root
+of the checkout, at the first call of ``library()``. The hash
 covers the sources and the flags, so an edited source builds anew. The
 library is loaded with ``ctypes``; each C entry point takes its pointers and
 the CUDA stream as ``void*`` and returns ``cudaGetLastError()`` after its
@@ -16,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -23,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SMEM_PER_BLOCK = 232448   # bytes of shared memory a Hopper block can use
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # ba_assemble: R_flat, t, points, uv0, uv1, w, cam_of_slot, C, K, L,
@@ -31,9 +33,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _BA = [_P] * 7 + [_I] * 3 + [_P] * 4
 # spd_solve: S, b, A (scratch), x, n, stream
 _SPD = [_P] * 4 + [_I, _P]
+# tridiag_solve: D, E, r, M (scratch), work (tile scratch or NULL), x, G, m,
+#                stream
+_TRI = [_P] * 6 + [_I, _I, _P]
+
+
+def _undistort(scalar):
+    """undistort: px, out, n, fx, fy, cx, cy, k1, k2, k3, p1, p2, iters,
+    stream"""
+    return [_P, _P, _I] + [scalar] * 9 + [_I, _P]
+
+
 SIGNATURES = {
     "ba_assemble_f32": _BA, "ba_assemble_f64": _BA,
     "spd_solve_f32": _SPD, "spd_solve_f64": _SPD,
+    "tridiag_solve_f32": _TRI, "tridiag_solve_f64": _TRI,
+    "undistort_f32": _undistort(ctypes.c_float),
+    "undistort_f64": _undistort(ctypes.c_double),
 }
 
 _lib = None
@@ -65,14 +81,25 @@ def library():
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)     # atomic: a concurrent loader never sees half
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            tmp = Path(tmpdir)
+            sources = sorted(CSRC.glob("*.cu"))
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for src in sources]
+            logs = [(p.communicate()[0], p.returncode) for p in procs]
+            if all(rc == 0 for _, rc in logs):
+                link = subprocess.run(
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / so.name),
+                     *(str(tmp / f"{src.stem}.o") for src in sources)],
+                    capture_output=True, text=True)
+                logs.append((link.stdout + link.stderr, link.returncode))
+            for log, rc in logs:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
+            os.replace(tmp / so.name, so)   # atomic: a loader never sees half
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

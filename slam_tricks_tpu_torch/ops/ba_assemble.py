@@ -26,6 +26,11 @@ from slam_tricks_tpu_torch.ops import _build
 
 LAUNCHES = 0    # kernel launches since the last reset (chip_smoke.py reads it)
 
+# floating-point operations of one live slot in the kernel, as written:
+# projection 21, residual and cost 11, Jacobians 40, W 54, camera sums 109,
+# landmark sums 36 (a padding slot only stores its zero W)
+FLOPS_PER_SLOT = 271
+
 _IJ6 = [(i, j) for i in range(6) for j in range(i, 6)]     # 21 entries
 _IJ3 = [(i, j) for i in range(3) for j in range(i, 3)]     # 6 entries
 

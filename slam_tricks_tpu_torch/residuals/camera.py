@@ -1,0 +1,96 @@
+"""Pinhole intrinsics and radial-tangential (Brown-Conrady) distortion
+(port of ``slam_tricks_tpu/residuals/camera.py``, the parts the st1
+undistortion uses).
+
+Where the JAX package maps single points with ``vmap``, every function here
+takes a batch of points (N, 2). ``undistort_points_fast`` runs the CUDA
+kernel ``ops/undistort`` on a CUDA tensor.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from slam_tricks_tpu_torch.ops import undistort as _undistort
+
+
+class Intrinsics(NamedTuple):
+    """Pinhole intrinsics (fx, fy, cx, cy): numbers or 0-d tensors."""
+    fx: object
+    fy: object
+    cx: object
+    cy: object
+
+    @property
+    def K(self):
+        fx, fy, cx, cy = (torch.as_tensor(v) for v in self)
+        one, zero = torch.ones_like(fx), torch.zeros_like(fx)
+        return torch.stack([torch.stack([fx, zero, cx]),
+                            torch.stack([zero, fy, cy]),
+                            torch.stack([zero, zero, one])])
+
+    @classmethod
+    def from_K(cls, K):
+        return cls(K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+
+
+class DistCoeffs(NamedTuple):
+    """Radial (k1, k2, k3) and tangential (p1, p2) coefficients."""
+    k1: object
+    k2: object
+    k3: object
+    p1: object
+    p2: object
+
+    @classmethod
+    def zeros(cls):
+        return cls(0.0, 0.0, 0.0, 0.0, 0.0)
+
+    @classmethod
+    def from_opencv(cls, d):
+        """OpenCV order [k1, k2, p1, p2, k3]."""
+        return cls(d[0], d[1], d[4], d[2], d[3])
+
+    def to_opencv(self):
+        return torch.stack([torch.as_tensor(v) for v in
+                            (self.k1, self.k2, self.p1, self.p2, self.k3)])
+
+
+def project(intr, p_norm):
+    """Normalized plane (N, 2) -> pixels (N, 2)."""
+    return torch.stack([intr.fx * p_norm[:, 0] + intr.cx,
+                        intr.fy * p_norm[:, 1] + intr.cy], dim=1)
+
+
+def unproject(intr, px):
+    """Pixels (N, 2) -> normalized plane (N, 2)."""
+    return torch.stack([(px[:, 0] - intr.cx) / intr.fx,
+                        (px[:, 1] - intr.cy) / intr.fy], dim=1)
+
+
+def distort_normalized(dist, p):
+    """Forward radial-tangential model on normalized coordinates (N, 2).
+
+    ud = u(1 + k1 r^2 + k2 r^4 + k3 r^6) + 2 p1 u v + p2 (r^2 + 2 u^2)
+    vd = v(1 + k1 r^2 + k2 r^4 + k3 r^6) + p1 (r^2 + 2 v^2) + 2 p2 u v
+    """
+    u, v = p[:, 0], p[:, 1]
+    r2 = u * u + v * v
+    radial = 1.0 + r2 * (dist.k1 + r2 * (dist.k2 + r2 * dist.k3))
+    du = 2.0 * dist.p1 * u * v + dist.p2 * (r2 + 2.0 * u * u)
+    dv = dist.p1 * (r2 + 2.0 * v * v) + 2.0 * dist.p2 * u * v
+    return torch.stack([u * radial + du, v * radial + dv], dim=1)
+
+
+def distort_pixels(intr, dist, px):
+    """Pixels (N, 2) -> distorted pixels, through the normalized plane."""
+    return project(intr, distort_normalized(dist, unproject(intr, px)))
+
+
+def undistort_points_fast(intr, dist, px_dist, iters=5):
+    """Newton undistortion with the analytic 2x2 Jacobian and its
+    closed-form inverse: distorted pixels (N, 2) -> (N, 2). The CUDA kernel
+    on a CUDA tensor, its plain torch version on a CPU tensor."""
+    params = (intr.fx, intr.fy, intr.cx, intr.cy,
+              dist.k1, dist.k2, dist.k3, dist.p1, dist.p2)
+    return _undistort.undistort(px_dist, params, iters)

@@ -4,5 +4,6 @@ from slam_tricks_tpu_torch.sim.ba_scene import (  # noqa: F401
     BAObservations,
     BAScene,
     make_scene,
+    make_trajectory_scene,
     perturb_scene,
 )

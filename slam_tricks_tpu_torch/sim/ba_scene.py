@@ -1,9 +1,11 @@
-"""Deterministic BA scene: the st20 cube room (port of
-``slam_tricks_tpu/sim/ba_scene.py``, the parts the headline solve uses).
+"""Deterministic BA scenes (port of ``slam_tricks_tpu/sim/ba_scene.py``):
+the st20 cube room of the headline solve and the large-C trajectory scene
+of the banded solve.
 
-The scene is built in numpy exactly as the JAX package builds it, so the
+Each scene is built in numpy exactly as the JAX package builds it, so the
 observation arrays are bit-identical for the same seed; only the final
-arrays become torch tensors, on the device asked for.
+arrays become torch tensors, on the card unless the caller names another
+device.
 """
 
 from typing import NamedTuple
@@ -11,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.manifolds import se3
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -77,10 +80,12 @@ def spiral_trajectory(n_cams=30, radius=2.0, height=1.5, turns=2.0):
 
 def make_scene(n_per_wall=100, n_cams=30, half=4.0, fov_tan=1.2,
                min_depth=0.25, pix_noise=0.0, seed=0, dtype=torch.float64,
-               device="cpu"):
+               device=None):
     """The full scene with visibility-culled, optionally noisy observations,
-    padded to a multiple of 8 (padding has weight 0)."""
+    padded to a multiple of 8 (padding has weight 0). Tensors go to `device`,
+    the card unless the caller names another."""
     np_dtype = _NP_DTYPE[dtype]
+    device = resolve(device)
     rng = np.random.default_rng(seed + 1)
     pts = cube_room_points(n_per_wall, half, seed)          # (L, 3)
     Rs, ts = spiral_trajectory(n_cams)                       # (C,3,3), (C,3)
@@ -99,12 +104,19 @@ def make_scene(n_per_wall=100, n_cams=30, half=4.0, fov_tan=1.2,
     if pix_noise > 0:
         uv = uv + rng.normal(size=uv.shape) * pix_noise
 
-    n = cam_idx.shape[0]
-    pad = (-n) % 8
+    return _padded_scene(cam_idx, lm_idx, uv, np.ones(cam_idx.shape[0]), Rs,
+                         ts, pts, n_cams, L, np_dtype, device)
+
+
+def _padded_scene(cam_idx, lm_idx, uv, w, Rs, ts, pts, n_cams, n_points,
+                  np_dtype, device):
+    """A BAScene on `device` from numpy observations, padded with weight-0
+    entries to a multiple of 8."""
+    pad = (-cam_idx.shape[0]) % 8
     cam_idx = np.concatenate([cam_idx, np.zeros(pad, np.int64)])
     lm_idx = np.concatenate([lm_idx, np.zeros(pad, np.int64)])
     uv = np.concatenate([uv, np.zeros((pad, 2))])
-    w = np.concatenate([np.ones(n), np.zeros(pad)])
+    w = np.concatenate([w, np.zeros(pad)])
 
     def tensor(a):
         return torch.as_tensor(a, device=device)
@@ -116,7 +128,57 @@ def make_scene(n_per_wall=100, n_cams=30, half=4.0, fov_tan=1.2,
         weight=tensor(w.astype(np_dtype)))
     poses = se3.SE3(tensor(Rs.astype(np_dtype)), tensor(ts.astype(np_dtype)))
     return BAScene(poses_true=poses, points_true=tensor(pts.astype(np_dtype)),
-                   obs=obs, n_cams=n_cams, n_points=L)
+                   obs=obs, n_cams=n_cams, n_points=n_points)
+
+
+def make_trajectory_scene(n_cams=1024, n_points=200_000, track_len=8,
+                          radius=50.0, seed=0, pix_noise=0.0,
+                          dtype=torch.float32, device=None):
+    """Large-scale SLAM-like scene: cameras on a circle looking along its
+    tangent, each landmark seen by a window of `track_len` consecutive
+    cameras, so the reduced camera system is block-banded. Observations are
+    sorted by landmark; one that falls behind its camera (z <= 0.5), and
+    every observation of a landmark left with fewer than two, has weight 0.
+    Tensors go to `device`, the card unless the caller names another."""
+    np_dtype = _NP_DTYPE[dtype]
+    device = resolve(device)
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n_cams) / n_cams
+    eyes = np.stack([radius * np.cos(ang), radius * np.sin(ang),
+                     np.zeros(n_cams)], axis=1)
+    fwd = np.stack([-np.sin(ang), np.cos(ang), np.zeros(n_cams)], axis=1)
+    Rs, ts = [], []
+    for i in range(n_cams):
+        R, t = look_at(eyes[i], eyes[i] + fwd[i])
+        Rs.append(R)
+        ts.append(t)
+    Rs = np.stack(Rs)
+    ts = np.stack(ts)
+
+    # each landmark anchored ahead of the middle camera of its window
+    c0 = rng.integers(0, n_cams - track_len + 1, size=n_points)
+    mid = c0 + track_len // 2
+    local = np.stack([
+        rng.uniform(-1.5, 1.5, n_points),
+        rng.uniform(-1.5, 1.5, n_points),
+        rng.uniform(6.0, 14.0, n_points),
+    ], axis=1)
+    pts = np.einsum("nji,nj->ni", Rs[mid], local - ts[mid])   # R^T (p - t)
+
+    cam_idx = (c0[:, None] + np.arange(track_len)[None, :]).reshape(-1)
+    lm_idx = np.repeat(np.arange(n_points), track_len)
+    p_cam = (np.einsum("nij,nj->ni", Rs[cam_idx], pts[lm_idx])
+             + ts[cam_idx])
+    z = p_cam[:, 2]
+    valid = z > 0.5
+    uv = p_cam[:, :2] / np.where(valid, z, 1.0)[:, None]
+    if pix_noise > 0:
+        uv = uv + rng.normal(size=uv.shape) * pix_noise
+    w = valid.astype(np.float64)
+    n_valid = np.bincount(lm_idx, weights=w, minlength=n_points)
+    w = w * (n_valid[lm_idx] >= 2)
+    return _padded_scene(cam_idx, lm_idx, uv, w, Rs, ts, pts, n_cams,
+                         n_points, np_dtype, device)
 
 
 def perturb_scene(scene, pose_rot_noise=0.05, pose_trans_noise=0.1,

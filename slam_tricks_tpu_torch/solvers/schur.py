@@ -1,12 +1,16 @@
-"""LM state, the track table and the LM control law (the subset of
-``slam_tricks_tpu/solvers/schur.py`` that the slot-major solver uses)."""
+"""LM state, the track table, the LM control law and the LM loop that the
+Schur solvers share (the subset of ``slam_tricks_tpu/solvers/schur.py``
+that the slot-major and banded solvers use)."""
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from slam_tricks_tpu_torch.manifolds import se3
+from slam_tricks_tpu_torch.manifolds import se3, so3
+
+LAMBDA_INIT = 1e-4    # the JAX solvers' defaults, which every caller uses
+XTOL = 1e-12          # stop when an accepted step is shorter than this
 
 
 class BAState(NamedTuple):
@@ -66,3 +70,50 @@ def lm_accept(cost_old, cost_try, lam, nu, pred, bad):
     lam_new = torch.clamp(lam_new, 1e-12, 1e10)
     nu_new = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
     return accept, lam_new, nu_new
+
+
+def lm_loop(poses0, points0, quantities, solve, *, max_iters, costs=None):
+    """The Levenberg-Marquardt loop of the JAX package's Schur solvers, run
+    on the host over device tensors with one sync (the stop flag) a step.
+
+    quantities(poses, points) -> (blocks, cost), blocks = (Hpp, gp, Hll,
+    gl, W) in the solver's layout; solve(blocks, lam) -> (dp (C, 6),
+    dl (L, 3), diag_pp (C, 6), diag_ll (L, 3)). Steps retract on
+    SO(3) x R^3 (tangent [omega, dt]); the predicted reduction uses the
+    Marquardt diagonals. If `costs` is a list, the cost at the start and
+    after each step is appended to it (device scalars). Returns a BAState."""
+    dtype, device = points0.dtype, points0.device
+    poses, points = poses0, points0
+    blocks, cost = quantities(poses, points)
+    lam = torch.tensor(LAMBDA_INIT, dtype=dtype, device=device)
+    nu = torch.tensor(2.0, dtype=dtype, device=device)
+    it, done = 0, False
+    if costs is not None:
+        costs.append(cost)
+    while not done and it < max_iters:
+        gp, gl = blocks[1], blocks[3]
+        dp, dl, diag_pp, diag_ll = solve(blocks, lam)
+        bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
+        dp_s = torch.where(bad, torch.zeros_like(dp), dp)
+        dl_s = torch.where(bad, torch.zeros_like(dl), dl)
+        poses_try = se3.SE3(so3.retract(poses.R, dp_s[:, :3]),
+                            poses.t + dp_s[:, 3:])
+        points_try = points + dl_s
+        blocks_try, cost_try = quantities(poses_try, points_try)
+
+        pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl.T))
+        pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp)) + pred_l)
+        accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred, bad)
+        step_sq = torch.sum(dp_s * dp_s) + torch.sum(dl_s * dl_s)
+        poses = se3.SE3(torch.where(accept, poses_try.R, poses.R),
+                        torch.where(accept, poses_try.t, poses.t))
+        points = torch.where(accept, points_try, points)
+        cost = torch.where(accept, cost_try, cost)
+        blocks = tuple(torch.where(accept, a, b)
+                       for a, b in zip(blocks_try, blocks))
+        it += 1
+        if costs is not None:
+            costs.append(cost)
+        done = bool(accept & (step_sq < XTOL * XTOL))   # one sync a step
+    return BAState(poses=poses, points=points, cost=cost, lam=lam, nu=nu,
+                   it=it, done=done)

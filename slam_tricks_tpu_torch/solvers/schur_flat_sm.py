@@ -25,17 +25,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slam_tricks_tpu_torch.manifolds import se3, so3
 from slam_tricks_tpu_torch.ops.ba_assemble import _IJ3, _IJ6, linearize_assemble
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
 from slam_tricks_tpu_torch.solvers.common import set_full_precision
-from slam_tricks_tpu_torch.solvers.schur import BAState, build_track_table, lm_accept
+from slam_tricks_tpu_torch.solvers.schur import build_track_table, lm_loop
 
 _DIAG6 = [k for k, (i, j) in enumerate(_IJ6) if i == j]    # [0, 6, 11, 15, 18, 20]
 _DIAG3 = [k for k, (i, j) in enumerate(_IJ3) if i == j]    # [0, 3, 5]
 _SYM6 = [_IJ6.index((min(i, j), max(i, j))) for i in range(6) for j in range(6)]
-_LAMBDA_INIT = 1e-4     # the JAX solver's defaults, which every caller uses
-_XTOL = 1e-12           # stop when an accepted step is shorter than this
 
 
 class SlotWork(NamedTuple):
@@ -229,45 +226,11 @@ def solve_ba_flat_sm(poses0, points0, work: SlotWork, *, fixed_mask=None,
     if loss is not None:
         raise NotImplementedError("robust loss= is not ported yet")
     set_full_precision()
-    C = work.n_cams
-    dtype, device = points0.dtype, points0.device
     if fixed_mask is None:
-        fixed_mask = torch.zeros(C, dtype=torch.bool, device=device)
+        fixed_mask = torch.zeros(work.n_cams, dtype=torch.bool,
+                                 device=points0.device)
         fixed_mask[0] = True
-
-    poses, points = poses0, points0
-    blocks, cost = _quantities_sm(poses, points, work)
-    lam = torch.tensor(_LAMBDA_INIT, dtype=dtype, device=device)
-    nu = torch.tensor(2.0, dtype=dtype, device=device)
-    it, done = 0, False
-    if costs is not None:
-        costs.append(cost)
-    while not done and it < max_iters:
-        Hpp, gp, Hll, gl, W = blocks
-        dp, dl, diag_pp, diag_ll = _solve_sm(Hpp, gp, Hll, gl, W, lam,
-                                             fixed_mask, work)
-        bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
-        dp_s = torch.where(bad, torch.zeros_like(dp), dp)
-        dl_s = torch.where(bad, torch.zeros_like(dl), dl)
-        poses_try = se3.SE3(so3.retract(poses.R, dp_s[:, :3]),
-                            poses.t + dp_s[:, 3:])
-        points_try = points + dl_s
-        blocks_try, cost_try = _quantities_sm(poses_try, points_try, work)
-
-        # predicted reduction with the JAX package's Marquardt diagonal
-        pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl.T))
-        pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp)) + pred_l)
-        accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred, bad)
-        step_sq = torch.sum(dp_s * dp_s) + torch.sum(dl_s * dl_s)
-        poses = se3.SE3(torch.where(accept, poses_try.R, poses.R),
-                        torch.where(accept, poses_try.t, poses.t))
-        points = torch.where(accept, points_try, points)
-        cost = torch.where(accept, cost_try, cost)
-        blocks = tuple(torch.where(accept, a, b)
-                       for a, b in zip(blocks_try, blocks))
-        it += 1
-        if costs is not None:
-            costs.append(cost)
-        done = bool(accept & (step_sq < _XTOL * _XTOL))  # one sync a step
-    return BAState(poses=poses, points=points, cost=cost, lam=lam, nu=nu,
-                   it=it, done=done)
+    return lm_loop(
+        poses0, points0, lambda poses, points: _quantities_sm(poses, points, work),
+        lambda blocks, lam: _solve_sm(*blocks, lam, fixed_mask, work),
+        max_iters=max_iters, costs=costs)

@@ -19,7 +19,7 @@ _TDT = {np.float64: torch.float64, np.float32: torch.float32}
 def test_make_scene_bit_identical(dtype, pix_noise):
     kw = dict(n_per_wall=60, n_cams=16, seed=3, pix_noise=pix_noise)
     ref = jmake_scene(dtype=dtype, **kw)
-    out = make_scene(dtype=_TDT[dtype], **kw)
+    out = make_scene(dtype=_TDT[dtype], device="cpu", **kw)
     assert (out.n_cams, out.n_points) == (ref.n_cams, ref.n_points)
     for name in ("cam_idx", "lm_idx", "uv", "weight"):
         a, b = getattr(out.obs, name).numpy(), np.asarray(getattr(ref.obs, name))
@@ -38,7 +38,8 @@ def test_make_scene_bit_identical(dtype, pix_noise):
 def test_perturb_scene_matches(dtype, tol):
     kw = dict(n_per_wall=60, n_cams=16, seed=3)
     ref_p, ref_x, ref_f = jperturb_scene(jmake_scene(dtype=dtype, **kw), seed=4)
-    out_p, out_x, out_f = perturb_scene(make_scene(dtype=_TDT[dtype], **kw),
+    out_p, out_x, out_f = perturb_scene(make_scene(dtype=_TDT[dtype], device="cpu",
+                                                   **kw),
                                         seed=4)
     np.testing.assert_allclose(out_p.R.numpy(), np.asarray(ref_p.R),
                                rtol=0, atol=tol)

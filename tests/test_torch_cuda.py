@@ -9,15 +9,21 @@ so it also runs on a GPU machine that has none:
 Every test skips without a CUDA device. Tolerances, as max |a - b| / max |b|:
 ba_assemble 1e-4 in f32 (float atomics sum in a run-dependent order) and
 1e-10 in f64; spd_solve 5e-6 on well-conditioned SPD systems (two f32
-Cholesky solves); the f64 solve to 1e-8 in the poses, as against JAX."""
+Cholesky solves); tridiag_solve 1e-4 in f32 and 1e-9 in f64 on
+well-conditioned systems (Gauss-Jordan inverses against Cholesky ones);
+undistort 2.5e-4 px in f32 (a few ulp at 700 px; the compiler fuses
+multiply-adds) and 1e-9 px in f64; the f64 solves to 1e-8 in the poses,
+as against JAX."""
 
 import numpy as np
 import pytest
 import torch
 
-from slam_tricks_tpu_torch.ops import ba_assemble, spd_solve
-from slam_tricks_tpu_torch.sim import make_scene, perturb_scene
-from slam_tricks_tpu_torch.solvers import schur_flat_sm
+from slam_tricks_tpu_torch.ops import (ba_assemble, spd_solve, tridiag_solve,
+                                       undistort)
+from slam_tricks_tpu_torch.sim import (make_scene, make_trajectory_scene,
+                                       perturb_scene)
+from slam_tricks_tpu_torch.solvers import banded_flat, schur_flat_sm
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +105,95 @@ def test_solve_on_cuda_matches_cpu():
     assert work.w.device.type == "cuda"
     out = schur_flat_sm.solve_ba_flat_sm(poses0, points0, work,
                                          fixed_mask=fixed, max_iters=15)
+    assert (out.it, out.done) == (ref.it, ref.done)
+    np.testing.assert_allclose(out.poses.t.cpu().numpy(), ref.poses.t.numpy(),
+                               rtol=0, atol=1e-8)
+
+
+def _tridiag_system(G, m, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    Gm = rng.normal(size=(G, m, m + 4))
+    D = Gm @ Gm.transpose(0, 2, 1) + (m / 2) * np.eye(m)[None]
+    E = 0.3 * rng.normal(size=(G - 1, m, m))
+    r = rng.normal(size=(G, m))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (D, E, r))
+
+
+# m = 138 (f32) and 97 (f64) are the largest with the tiles in shared
+# memory; 139, 98 and 192 (the widest band, K = 32) take the global scratch
+@pytest.mark.parametrize("G, m, dtype, tol", [
+    (128, 48, torch.float32, 1e-4), (12, 16, torch.float64, 1e-9),
+    (1, 48, torch.float32, 1e-4), (3, 138, torch.float32, 1e-4),
+    (2, 97, torch.float64, 1e-9), (3, 139, torch.float32, 1e-4),
+    (2, 98, torch.float64, 1e-9), (4, 192, torch.float32, 1e-4),
+    (4, 192, torch.float64, 1e-9)])
+def test_tridiag_kernel_matches_plain(G, m, dtype, tol):
+    dev = require_cuda()
+    D, E, r = _tridiag_system(G, m, G + m, dtype, dev)
+    ref = tridiag_solve.tridiag_solve_plain(D, E, r)
+    before = tridiag_solve.LAUNCHES
+    x = tridiag_solve.tridiag_solve(D, E, r)
+    torch.cuda.synchronize()
+    assert tridiag_solve.LAUNCHES == before + 1
+    assert x.shape == (G, m) and x.dtype == dtype
+    assert rel_err(x, ref) < tol
+
+
+def test_tridiag_kernel_refuses_too_large_blocks():
+    dev = require_cuda()
+    m = tridiag_solve.MAX_M + 1
+    D, E, r = _tridiag_system(2, m, 0, torch.float32, dev)
+    with pytest.raises(ValueError):
+        tridiag_solve.tridiag_solve(D, E, r)
+
+
+@pytest.mark.parametrize("n, dtype, tol", [(3001, torch.float32, 2.5e-4),
+                                           (500, torch.float64, 1e-9)])
+def test_undistort_kernel_matches_plain(n, dtype, tol):
+    dev = require_cuda()
+    params = (458.654, 457.296, 367.215, 248.375, -0.28340811, 0.07395907,
+              0.0, 0.00019359, 1.76187114e-05)
+    rng = np.random.default_rng(n)
+    px = torch.as_tensor(rng.uniform([50, 50], [700, 430], size=(n, 2)),
+                         dtype=dtype, device=dev)
+    ref = undistort.undistort_plain(px, params)
+    before = undistort.LAUNCHES
+    out = undistort.undistort(px, params)
+    torch.cuda.synchronize()
+    assert undistort.LAUNCHES == before + 1
+    assert float((out - ref).abs().max()) < tol
+
+
+def _banded_problem(device, n_cams=32, track_len=6, seed=71):
+    sc = make_trajectory_scene(n_cams=n_cams, n_points=600,
+                               track_len=track_len, seed=seed, pix_noise=1e-3,
+                               dtype=torch.float64, device=device)
+    poses0, points0, fixed = perturb_scene(sc, pose_rot_noise=0.002,
+                                           pose_trans_noise=0.01,
+                                           point_noise=0.01, seed=seed + 1)
+    bw = banded_flat.build_banded_work(sc.obs, sc.n_cams, sc.n_points,
+                                       dtype=torch.float64)
+    return poses0, points0, fixed, bw
+
+
+# the scene of test_banded_flat.py, and the widest band the layout takes:
+# 512 cameras, tracks of 32 (K = 32, super-blocks of m = 192)
+@pytest.mark.parametrize("n_cams, track_len, seed, iters, K", [
+    (32, 6, 71, 6, 5), (512, 32, 83, 3, 32)])
+def test_banded_solve_on_cuda_matches_cpu(n_cams, track_len, seed, iters, K):
+    dev = require_cuda()
+    problem = dict(n_cams=n_cams, track_len=track_len, seed=seed)
+    poses0, points0, fixed, bw = _banded_problem("cpu", **problem)
+    assert bw.w.shape[0] == K
+    ref = banded_flat.solve_ba_banded(poses0, points0, bw, fixed_mask=fixed,
+                                      max_iters=iters)
+    poses0, points0, fixed, bw = _banded_problem(dev, **problem)
+    before = (tridiag_solve.LAUNCHES, ba_assemble.LAUNCHES)
+    out = banded_flat.solve_ba_banded(poses0, points0, bw, fixed_mask=fixed,
+                                      max_iters=iters)
+    assert tridiag_solve.LAUNCHES - before[0] == out.it
+    assert ba_assemble.LAUNCHES - before[1] == out.it + 1
     assert (out.it, out.done) == (ref.it, ref.done)
     np.testing.assert_allclose(out.poses.t.cpu().numpy(), ref.poses.t.numpy(),
                                rtol=0, atol=1e-8)

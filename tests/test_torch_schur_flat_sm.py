@@ -38,7 +38,7 @@ def _problems(pix_noise=0.0, dtype=np.float64):
     jp0, jx0, jfx = jperturb_scene(jsc, seed=4)
     jwork = jsm.build_slot_work(jsc.obs, jsc.n_cams, jsc.n_points, dtype=dtype)
     tdt = torch.float64 if dtype == np.float64 else torch.float32
-    sc = make_scene(dtype=tdt, **kw)
+    sc = make_scene(dtype=tdt, device="cpu", **kw)
     p0, x0, fx = perturb_scene(sc, seed=4)
     work = schur_flat_sm.build_slot_work(sc.obs, sc.n_cams, sc.n_points,
                                          dtype=tdt)
@@ -48,19 +48,19 @@ def _problems(pix_noise=0.0, dtype=np.float64):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_slot_work_and_interop_match(dtype):
     (jsc, jp0, jx0, _, jwork), (sc, p0, x0, _, work) = _problems(dtype=dtype)
-    conv = interop.slot_work_from_jax(jwork)
+    conv = interop.slot_work_from_jax(jwork, "cpu")
     assert conv.n_cams == work.n_cams == jwork.n_cams
     for name in ("uv0", "uv1", "w", "mask", "cam_of_slot"):
         ref = np.asarray(getattr(jwork, name))
         np.testing.assert_array_equal(getattr(work, name).numpy(), ref, name)
         np.testing.assert_array_equal(getattr(conv, name).numpy(), ref, name)
     # interop round trips: JAX arrays -> tensors -> numpy, unchanged
-    for a, b in zip(interop.obs_from_jax(jsc.obs), sc.obs):
+    for a, b in zip(interop.obs_from_jax(jsc.obs, "cpu"), sc.obs):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    poses = interop.poses_from_jax(jp0)
+    poses = interop.poses_from_jax(jp0, "cpu")
     np.testing.assert_array_equal(poses.R.numpy(), np.asarray(jp0.R))
     np.testing.assert_array_equal(poses.t.numpy(), np.asarray(jp0.t))
-    np.testing.assert_array_equal(interop.tensor(jx0).numpy(),
+    np.testing.assert_array_equal(interop.tensor(jx0, "cpu").numpy(),
                                   np.asarray(jx0))
     # the track table under the slot grid
     jt = jschur.build_track_table(jsc.obs.cam_idx, jsc.obs.lm_idx,

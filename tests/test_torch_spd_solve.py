@@ -33,7 +33,8 @@ def _spd(n, seed=0, dtype=np.float32):
 def _ba_system():
     """S, b of the first LM step (lam 1e-4) on the scene of
     tests/test_pallas_chol.py::test_ba_reduced_system_shape (f32)."""
-    sc = make_scene(n_per_wall=10, n_cams=6, seed=21, dtype=torch.float32)
+    sc = make_scene(n_per_wall=10, n_cams=6, seed=21, dtype=torch.float32,
+                    device="cpu")
     poses0, points0, fixed = perturb_scene(sc, seed=22)
     work = schur_flat_sm.build_slot_work(sc.obs, sc.n_cams, sc.n_points,
                                          dtype=torch.float32)
