@@ -4,8 +4,9 @@
 
 From the root of a checkout: builds the CUDA kernels from the sources in
 slam_tricks_tpu_torch/csrc, holds each against its plain torch version at the
-shapes of the paths that run it, checks small solves through the kernels
-against the CPU path, then drives the port's three paths through the
+shapes of the paths that run it (and tridiag_solve also at the widest band's
+(16, 192), its global-tile instance), checks small solves through the
+kernels against the CPU path, then drives the port's three paths through the
 kernels, each with every launch count set to 0 just before it:
 
 - A, the headline bundle adjustment (st20 cube room: 96 cameras, 2400
@@ -42,7 +43,7 @@ SPD_RANDOM_REL_TOL = 5e-6   # x vs plain x on a well-conditioned SPD matrix
 TRI_RES_FACTOR = 10.0       # tridiag residual <= this x the plain one (+ eps)
 TRI_RANDOM_REL_TOL = 1e-4   # x vs plain x on the well-conditioned system
 FINAL_COST_MAX = 0.05       # both known basins (~1e-10, ~2.5e-2) are below
-B_FINAL_COST_MAX = 1e-4     # path B starts at ~1e3
+B_FINAL_COST_MAX = 1e-4     # path B starts at ~1e2 (102.4 on the card)
 SMALL_POSE_TOL = 1e-8       # f64 small-scene poses, card vs CPU
 UNDISTORT_TOL = 2.5e-4      # px, kernel vs plain, f32 (a few ulp at 700 px)
 ROUND_TRIP_TOL = 1e-3       # px, |undistort(distort(px)) - px|, f32
@@ -395,6 +396,42 @@ def main():
                           f"{Gb * mb}^2 matrix) {k3_lib_ms:.4f} ms, bound "
                           f"{k3_bound:.5f} ms ({k3_by})")
 
+    # the widest band, K = 32: (G, m) = (16, 192) f32, the instance whose
+    # working tiles sit in a global scratch
+    Gw, mw = 16, 192
+    Gm = rng_np.normal(size=(Gw, mw, mw + 8))
+    Dw = torch.as_tensor(Gm @ Gm.transpose(0, 2, 1) + 8 * np.eye(mw)[None],
+                         dtype=f32, device=dev)
+    Ew = torch.as_tensor(0.3 * rng_np.normal(size=(Gw - 1, mw, mw)),
+                         dtype=f32, device=dev)
+    rw = torch.as_tensor(rng_np.normal(size=(Gw, mw)), dtype=f32, device=dev)
+    assert tridiag_solve.smem_bytes(mw, f32) > _build.SMEM_PER_BLOCK
+    x_k = tridiag_solve.tridiag_solve(Dw, Ew, rw)
+    x_p = tridiag_solve.tridiag_solve_plain(Dw, Ew, rw)
+    T64, r64 = dense(Dw, Ew), rw.double().reshape(-1)
+    res_k = float((T64 @ x_k.double().reshape(-1) - r64).norm() / r64.norm())
+    res_p = float((T64 @ x_p.double().reshape(-1) - r64).norm() / r64.norm())
+    k3_abs = max(k3_abs, float((x_k - x_p).abs().max()))
+    if not res_k <= TRI_RES_FACTOR * res_p + 1e-6:
+        raise AssertionError(f"tridiag_solve (16, 192): residual {res_k} > "
+                             f"{TRI_RES_FACTOR} x plain {res_p} + 1e-6")
+    Tdense = T64.float()
+    rdense = rw.reshape(-1, 1)
+    kw_ms, kw_plain_ms = _paired_ms(
+        lambda: tridiag_solve.tridiag_solve(Dw, Ew, rw),
+        lambda: tridiag_solve.tridiag_solve_plain(Dw, Ew, rw), reps=3)
+    kw_lib_ms = _time_ms(lambda: torch.cholesky_solve(
+        rdense, torch.linalg.cholesky_ex(Tdense)[0]), reps=3)
+    del Tdense, T64
+    kw_bound, kw_by = _bound(_nbytes(Dw, Ew, rw, rw),
+                             tridiag_solve.flops(Gw, mw))
+    _log("tridiag_solve", f"K = 32 shape (G, m)=({Gw}, {mw}), tiles in global "
+                          f"memory: |Tx-r|/|r| kernel {res_k:.3e} plain "
+                          f"{res_p:.3e}; kernel {kw_ms:.4f} ms, plain torch "
+                          f"{kw_plain_ms:.4f} ms, library (dense {Gw * mw}^2) "
+                          f"{kw_lib_ms:.4f} ms, bound {kw_bound:.5f} ms "
+                          f"({kw_by})")
+
     # ---- 10. reference: a small f64 trajectory solve, card vs CPU ----
     results = []
     for device in ("cpu", dev):
@@ -513,7 +550,9 @@ def main():
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",
          "launches": launches_b["tridiag_solve"], "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_lib_ms},
+         "bound_by": k3_by, "library_ms": k3_lib_ms,
+         "m192": {"ms": kw_ms, "plain_ms": kw_plain_ms, "bound_ms": kw_bound,
+                  "bound_by": kw_by, "library_ms": kw_lib_ms}},
         {"name": "undistort", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/undistort.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_undistort.py:23",

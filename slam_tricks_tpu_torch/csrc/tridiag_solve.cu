@@ -1,238 +1,313 @@
-// SPD block-tridiagonal solve, for Hopper (sm_90a).
+// SPD block-tridiagonal solve by block cyclic reduction, for Hopper (sm_90a).
 //
 // Replaces: slam_tricks_tpu/ops/pallas_tridiag.py::_kernel (called by
-// tridiag_solve). Same recursion, same numerics (unpivoted Gauss-Jordan
-// inverses of the Schur complements):
-//   forward   M_g = (D_g - E_{g-1} M_{g-1} E_{g-1}^T)^{-1}
-//             u_g = M_g (r_g - E_{g-1} u_{g-1})
-//   backward  x_{G-1} = u_{G-1};  x_g = u_g - M_g E_g^T x_{g+1}
-// D (G, m, m) diagonal blocks, E (G-1, m, m) sub-diagonal blocks
-// (E_g = S[g+1, g]), r (G, m), all row-major; x (G, m) out. M (G, m, m) is a
-// scratch in device memory that the wrapper allocates (1.2 MB at G = 128,
-// m = 48 in f32: it stays in the 50 MB L2).
+// tridiag_solve), and computes the same function: the solution x (G, m) of
+// T x = r, T with diagonal blocks D (G, m, m) and sub-diagonal blocks
+// E (G-1, m, m), E_g = T[g+1, g], all row-major. The algorithm is the JAX
+// package's own default, slam_tricks_tpu/solvers/banded_flat.py::
+// _block_tridiag_cr_multi (one right-hand side, reduced down to one block),
+// not the Pallas kernel's sequential sweep. At each level, on the current
+// system of Gc blocks:
+//   phase 1, a block per odd row i: Cholesky D_i = U^T U in shared memory
+//     with [E_{i-1} | E_i^T | r_i] carried along, then U^-1, giving
+//     W_i = [M E_{i-1} | M E_i^T | M r_i], M = D_i^-1, into a level store
+//     (dense_tile.cuh: by panels of 32 rows, each factored by one warp in
+//     registers, the solves a thread a column in registers);
+//   grid barrier;
+//   phase 2, a block per even row 2k: the half-size system
+//     D'_k = D_2k - E_2k^T M_2k+1 E_2k - E_2k-1 M_2k-1 E_2k-1^T,
+//     E'_k = -E_2k+1 M_2k+1 E_2k,
+//     r'_k = r_2k - E_2k^T M_2k+1 r_2k+1 - E_2k-1 M_2k-1 r_2k-1,
+//     into a ping-pong level buffer;
+//   grid barrier.
+// An odd Gc needs no padding: its last (even) row has no odd row below.
+// At Gc = 1 one block solves D x = r by Cholesky. Back-substitution, one
+// parallel phase a level from the coarsest: x_i = M r_i - M E_{i-1} x_{i-1}
+// - M E_i^T x_{i+1} for the odd rows, a warp a row. Row j of level l is
+// row j 2^l of the original system, so every level writes into x directly.
+// That is 3 log2(G) grid barriers, 21 at G = 128, where the sequential
+// sweep had ~6,100 block barriers.
+// A Schur complement that is not positive definite gives NaN (a pivot
+// d <= 0 scales by NaN), as the plain version and JAX's cyclic reduction
+// do; the Pallas kernel's unpivoted Gauss-Jordan gave finite values there.
+// The LM loop turns a non-finite step into a rejected zero step.
 //
-// What bounds it on the H100: the dependency chain. Block g needs M_{g-1},
-// so the forward sweep is G dependent steps, each an m x m inverse that is
-// itself m dependent rank-1 steps, and the backward sweep is G - 1 more
-// dependent steps. The bytes the function must move (D, E, r, x: 2.4 MB at
-// (128, 48) f32, 0.71 us at 3.35 TB/s) and the operations an SPD solve needs
-// (block Cholesky, ~7/3 m^3 a block: 35 MFLOP, 0.53 us at 67 TFLOP/s) are
-// far below what the chain costs.
-// What the design does about it: one block of 512 threads runs the whole
-// solve, so each dependency is a barrier, not a kernel launch. The three
-// m x m working tiles, rows padded to an odd stride so that a warp reading a
-// column hits 32 banks:
-//   X  E_{g-1}, then a Gauss-Jordan buffer;
-//   Y  A_g = D_g - (E_{g-1} M_{g-1}) E_{g-1}^T, then M_g;
-//   Z  E_{g-1} M_{g-1}, then the other Gauss-Jordan buffer;
-// the inverse ping-pongs between two tiles, one barrier a pivot; thread
-// (row0, col) owns column col of rows row0, row0 + 512/m, ..., so loads of D
-// and E and stores of M are coalesced. The matrix-vector products run one
-// warp a row with shuffle sums.
-// Size limit: m <= 512 (a thread a column). The tiles, 3 m (m | 1) values,
-// sit in shared memory up to m = 138 in f32 and m = 97 in f64; beyond, in a
-// global scratch `work` that the wrapper allocates (0.9 MB at m = 192 in
-// f64, L2-resident), with the same barriers, so m = 6 K for every band
-// K <= 32 that the banded layout accepts goes through. The three vectors
-// always sit in shared memory.
-// Known costs, left for later: one SM works and 131 idle; each pivot step is
-// a barrier; the next block's E and D are not prefetched.
+// What bounds it on the H100: the chain of log2(G) levels, each a Cholesky
+// of m pivots and two triangular solves, then three m^3 products; the
+// bytes (D, E, r, x: 2.4 MB at (128, 48) f32,
+// 0.71 us at 3.35 TB/s) and the operations the solve needs (block Cholesky,
+// 35 MFLOP, 0.53 us at 67 TFLOP/s) are far below what the chain costs.
+// What the design does about it: one cooperative launch of a persistent
+// grid of min(#SMs, ceil(G / 2)) blocks of 256 threads (64 at G = 128),
+// co-residency checked before the launch, cooperative_groups grid syncs
+// between phases; the level store (sum over levels of the odd rows,
+// m (2m + 1) values each: 1.2 MB at (128, 48) f32) and the level buffers
+// stay in the 50 MB L2; the products keep 4 x 4 sums a thread in registers.
+// Size limit: m <= 512 (the wrapper's MAX_M). A block's working tile,
+// mp (mp + 2m + 2) values with mp = m rounded up to 32, sits in shared
+// memory up to m = 128 in f32 and m = 96 in f64; beyond, in a global
+// scratch `work`, one slice a block (the K = 32 band, m = 192, in f64:
+// 0.89 MB a block, L2-resident).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "dense_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;   // also the largest m
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFullWarp = 0xffffffffu;
 
-// row stride of a shared tile: odd, so the rows of a column fall in
-// different banks
-__host__ __device__ constexpr int tile_ld(int m) { return m | 1; }
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T s) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(kFullWarp, s, off);
-  return s;   // in lane 0
+// a block's working tile: the m x m block padded with the identity to
+// mp = m rounded up to 32 (whole panels of dense_tile.cuh; padding is
+// exact), then 2 m + 1 right-hand-side columns, then mp scales
+__host__ __device__ constexpr int padded(int m) { return (m + 31) / 32 * 32; }
+__host__ __device__ constexpr int tile_ld(int m) { return padded(m) + 2 * m + 1; }
+__host__ __device__ constexpr size_t tile_values(int m) {
+  return static_cast<size_t>(padded(m)) * (tile_ld(m) + 1);
 }
 
-// sum_k A[i * lda + k] v[k], one warp; the total in lane 0
+// P[:, :mp] = the block at Dsrc padded with the identity; the na columns at
+// mp zeroed in the padding rows
 template <typename T>
-__device__ __forceinline__ T row_dot(const T* A, int lda, int i, const T* v,
-                                     int m, int lane) {
-  T s = T(0);
-  for (int k = lane; k < m; k += 32) s += A[i * lda + k] * v[k];
-  return warp_sum(s);
+__device__ void load_block(T* P, const T* Dsrc, int m, int na) {
+  const int mp = padded(m), ld = tile_ld(m);
+  for (int idx = threadIdx.x; idx < mp * mp; idx += blockDim.x) {
+    const int a = idx / mp, c = idx - a * mp;
+    P[a * ld + c] = a < m && c < m ? Dsrc[a * m + c] : T(a == c ? 1 : 0);
+  }
+  for (int idx = threadIdx.x; idx < (mp - m) * na; idx += blockDim.x) {
+    const int a = m + idx / na, c = idx - (a - m) * na;
+    P[a * ld + mp + c] = T(0);
+  }
 }
 
-// kSmemTiles: the tiles in shared memory, else in `work` (global)
 template <typename T, bool kSmemTiles>
 __global__ void __launch_bounds__(kThreads)
 tridiag_solve_kernel(const T* __restrict__ D, const T* __restrict__ E,
-                     const T* __restrict__ r, T* M, T* work, T* x, int G,
-                     int m) {
+                     const T* __restrict__ r, T* store, T* lev, T* work, T* x,
+                     int G, int m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* P = kSmemTiles ? reinterpret_cast<T*>(smem_raw)
+                    : work + blockIdx.x * tile_values(m);
+  const int mp = padded(m);
   const int ld = tile_ld(m);
-  T* vec = reinterpret_cast<T*>(smem_raw);
-  T* X = kSmemTiles ? vec : work;
-  T* Y = X + m * ld;
-  T* Z = Y + m * ld;
-  if (kSmemTiles) vec = Z + m * ld;
-  T* rhs = vec;          // (m) r_g - E_{g-1} u_{g-1}
-  T* u = rhs + m;        // (m) u_{g-1}, then u_g; in the backward x_{g+1}
-  T* t = u + m;          // (m) E_g^T x_{g+1}
-
+  T* sc = P + mp * ld;
+  const int lw = 2 * m + 1;                       // row stride of a W_i
+  const size_t mm = static_cast<size_t>(m) * m;
+  const size_t mw = static_cast<size_t>(m) * lw;
+  const int hmax = (G + 1) / 2;
+  const size_t lev_values = static_cast<size_t>(hmax) * (2 * mm + m);
+  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // this thread's elements of an m x m tile: (row0 + q * rstep, col)
-  const int rstep = kThreads / m;
-  const int col = tid % m;
-  const int row0 = tid < rstep * m ? tid / m : m;
-  const size_t mm = static_cast<size_t>(m) * m;
+  const int nb_grid = gridDim.x;
 
-  // ---- forward sweep ----
-  for (int g = 0; g < G; ++g) {
-    const T* Dg = D + g * mm;
-    const T* rg = r + static_cast<size_t>(g) * m;
-    if (g == 0) {
-      for (int i = row0; i < m; i += rstep) Y[i * ld + col] = Dg[i * m + col];
-      for (int i = tid; i < m; i += kThreads) rhs[i] = rg[i];
-      __syncthreads();
-    } else {
-      const T* Eg = E + (g - 1) * mm;
-      for (int i = row0; i < m; i += rstep) X[i * ld + col] = Eg[i * m + col];
-      __syncthreads();
-      // Z = E_{g-1} M_{g-1};  rhs = r_g - E_{g-1} u_{g-1}
-      for (int i = row0; i < m; i += rstep) {
-        T s = T(0);
-        for (int k = 0; k < m; ++k) s += X[i * ld + k] * Y[k * ld + col];
-        Z[i * ld + col] = s;
+  int levels = 0;
+  const T* Dc = D;
+  const T* Ec = E;
+  const T* rc = r;
+  int Gc = G;
+  size_t soff = 0;
+
+  // ---- forward: reduce to one block ----
+  while (Gc > 1) {
+    const int hodd = Gc / 2, hev = (Gc + 1) / 2;
+    // phase 1: W_i = D_i^-1 [E_{i-1} | E_i^T | r_i], i = 2k + 1
+    for (int k = blockIdx.x; k < hodd; k += nb_grid) {
+      const int i = 2 * k + 1;
+      const bool below = i + 1 < Gc;
+      const T* Di = Dc + i * mm;
+      const T* Ea = Ec + (i - 1) * mm;
+      const T* Eb = Ec + i * mm;
+      load_block(P, Di, m, lw);
+      for (int idx = tid; idx < m * m; idx += kThreads) {
+        const int a = idx / m, c = idx - a * m;
+        P[a * ld + mp + c] = Ea[idx];
+        P[c * ld + mp + m + a] = below ? Eb[idx] : T(0);   // E_i^T
       }
-      for (int i = warp; i < m; i += kWarps) {
-        const T s = row_dot(X, ld, i, u, m, lane);
-        if (lane == 0) rhs[i] = rg[i] - s;
+      for (int a = tid; a < m; a += kThreads) {
+        P[a * ld + mp + 2 * m] = rc[static_cast<size_t>(i) * m + a];
       }
-      __syncthreads();
-      // Y = D_g - Z E_{g-1}^T
-      for (int i = row0; i < m; i += rstep) {
-        T s = T(0);
-        for (int k = 0; k < m; ++k) s += Z[i * ld + k] * X[col * ld + k];
-        Y[i * ld + col] = Dg[i * m + col] - s;
+      dense_tile::chol_solve_block(P, ld, mp, lw, sc);
+      T* W = store + soff + k * mw;
+      for (int idx = tid; idx < m * lw; idx += kThreads) {
+        const int a = idx / lw, c = idx - a * lw;
+        W[idx] = P[a * ld + mp + c];
       }
       __syncthreads();
     }
+    grid.sync();
 
-    // M_g = Y^{-1}: unpivoted Gauss-Jordan, in place up to the ping-pong
-    T* src = Y;
-    T* dst = Z;
-    for (int k = 0; k < m; ++k) {
-      const T inv_p = T(1) / src[k * ld + k];
-      const T pk = src[k * ld + col] * inv_p;   // pivot row, scaled
-      for (int i = row0; i < m; i += rstep) {
-        const T aik = src[i * ld + k];
-        T v;
-        if (i == k) {
-          v = col == k ? inv_p : pk;
-        } else if (col == k) {
-          v = -aik * inv_p;
-        } else {
-          v = src[i * ld + col] - aik * pk;
+    // phase 2: the half-size system, row k = old row 2k
+    T* Dn = lev + (levels & 1) * lev_values;
+    T* En = Dn + hmax * mm;
+    T* rn = En + hmax * mm;
+    const int nbk = (m + 3) / 4;
+    for (int k = blockIdx.x; k < hev; k += nb_grid) {
+      const int e = 2 * k;
+      const bool down = e + 1 < Gc, up = k > 0, next = e + 2 < Gc;
+      const T* De = Dc + e * mm;
+      const T* Ed = Ec + e * mm;         // E_2k = T[2k+1, 2k]
+      const T* Eu = Ec + (up ? e - 1 : 0) * mm;   // E_2k-1 = T[2k, 2k-1]
+      const T* Ex = Ec + (e + 1) * mm;   // E_2k+1 = T[2k+2, 2k+1]
+      const T* Wd = store + soff + k * mw;
+      const T* Wu = store + soff + (up ? k - 1 : 0) * mw;
+      for (int blk = tid; blk < nbk * nbk; blk += kThreads) {
+        const int i0 = 4 * (blk / nbk), j0 = 4 * (blk % nbk);
+        int ii[4], jj[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ii[q] = min(i0 + q, m - 1);
+          jj[q] = min(j0 + q, m - 1);
         }
-        dst[i * ld + col] = v;
+        T dacc[4][4], eacc[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            dacc[a][c] = De[ii[a] * m + jj[c]];
+            eacc[a][c] = T(0);
+          }
+        }
+        if (down) {   // D' -= E_2k^T (M E_2k);  E' -= E_2k+1 (M E_2k)
+          for (int p = 0; p < m; ++p) {
+            T u[4], v[4], w[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              u[q] = Ed[p * m + ii[q]];
+              v[q] = Wd[p * lw + jj[q]];
+              w[q] = next ? Ex[ii[q] * m + p] : T(0);
+            }
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                dacc[a][c] -= u[a] * v[c];
+                eacc[a][c] -= w[a] * v[c];
+              }
+            }
+          }
+        }
+        if (up) {     // D' -= E_2k-1 (M E_2k-1^T)
+          for (int p = 0; p < m; ++p) {
+            T u[4], v[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              u[q] = Eu[ii[q] * m + p];
+              v[q] = Wu[p * lw + m + jj[q]];
+            }
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) dacc[a][c] -= u[a] * v[c];
+            }
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (i0 + a < m && j0 + c < m) {
+              Dn[k * mm + (i0 + a) * m + j0 + c] = dacc[a][c];
+              if (next) En[k * mm + (i0 + a) * m + j0 + c] = eacc[a][c];
+            }
+          }
+        }
       }
-      __syncthreads();
-      T* tmp = src;
-      src = dst;
-      dst = tmp;
-    }
-    if (src != Y) {
-      for (int i = row0; i < m; i += rstep) Y[i * ld + col] = src[i * ld + col];
-      __syncthreads();
-    }
-
-    // u_g = M_g rhs; keep M_g for the backward sweep
-    for (int i = warp; i < m; i += kWarps) {
-      const T s = row_dot(Y, ld, i, rhs, m, lane);
-      if (lane == 0) {
-        u[i] = s;
-        x[static_cast<size_t>(g) * m + i] = s;
+      for (int a = tid; a < m; a += kThreads) {
+        T s = rc[static_cast<size_t>(e) * m + a];
+        for (int p = 0; p < m; ++p) {
+          if (down) s -= Ed[p * m + a] * Wd[p * lw + 2 * m];
+          if (up) s -= Eu[a * m + p] * Wu[p * lw + 2 * m];
+        }
+        rn[static_cast<size_t>(k) * m + a] = s;
       }
     }
-    T* Mg = M + g * mm;
-    for (int i = row0; i < m; i += rstep) Mg[i * m + col] = Y[i * ld + col];
-    __syncthreads();
+    grid.sync();
+    Dc = Dn;
+    Ec = En;
+    rc = rn;
+    soff += hodd * mw;
+    Gc = hev;
+    ++levels;
   }
 
-  // ---- backward sweep: u holds x_{G-1} = u_{G-1} ----
-  for (int g = G - 2; g >= 0; --g) {
-    const T* Eg = E + g * mm;
-    const T* Mg = M + g * mm;
-    for (int i = row0; i < m; i += rstep) {
-      X[i * ld + col] = Eg[i * m + col];
-      Y[i * ld + col] = Mg[i * m + col];
+  // ---- the last block: D x_0 = r ----
+  if (blockIdx.x == 0) {
+    load_block(P, Dc, m, 1);
+    for (int a = tid; a < m; a += kThreads) P[a * ld + mp] = rc[a];
+    dense_tile::chol_solve_block(P, ld, mp, 1, sc);
+    for (int a = tid; a < m; a += kThreads) x[a] = P[a * ld + mp];
+  }
+
+  // ---- back-substitution, from the coarsest level ----
+  for (int l = levels - 1; l >= 0; --l) {
+    grid.sync();
+    int gc = G;   // size and store offset of level l
+    size_t soffl = 0;
+    for (int q = 0; q < l; ++q) {
+      soffl += gc / 2 * mw;
+      gc = (gc + 1) / 2;
     }
-    __syncthreads();
-    for (int j = tid; j < m; j += kThreads) {   // t = E_g^T x_{g+1}
-      T s = T(0);
-      for (int i = 0; i < m; ++i) s += X[i * ld + j] * u[i];
-      t[j] = s;
-    }
-    __syncthreads();
-    T* xg = x + static_cast<size_t>(g) * m;     // holds u_g
-    for (int i = warp; i < m; i += kWarps) {
-      const T s = row_dot(Y, ld, i, t, m, lane);
-      if (lane == 0) {
-        const T xi = xg[i] - s;
-        xg[i] = xi;
-        u[i] = xi;
+    const int hodd = gc / 2;
+    const size_t stride = static_cast<size_t>(1) << l;
+    for (int k = blockIdx.x; k < hodd; k += nb_grid) {
+      const T* W = store + soffl + k * mw;
+      const T* xl = x + 2 * k * stride * m;
+      const bool right = 2 * k + 2 < gc;
+      const T* xr = x + (2 * k + 2) * stride * m;
+      T* xo = x + (2 * k + 1) * stride * m;
+      for (int a = warp; a < m; a += kWarps) {
+        const T* wa = W + a * lw;
+        T s = T(0);
+        for (int b = lane; b < m; b += 32) {
+          s += wa[b] * xl[b];
+          if (right) s += wa[m + b] * xr[b];
+        }
+        s = dense_tile::warp_sum(s);
+        if (lane == 0) xo[a] = wa[2 * m] - s;
       }
     }
-    __syncthreads();
   }
 }
 
 template <typename T, bool kSmemTiles>
-int launch_as(const void* D, const void* E, const void* r, void* M,
-              void* work, void* x, int G, int m, void* stream) {
-  const size_t tiles =
-      kSmemTiles ? 3 * static_cast<size_t>(m) * tile_ld(m) : 0;
-  const size_t smem = (tiles + 3 * static_cast<size_t>(m)) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      tridiag_solve_kernel<T, kSmemTiles>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tridiag_solve_kernel<T, kSmemTiles><<<1, kThreads, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(D), static_cast<const T*>(E),
-      static_cast<const T*>(r), static_cast<T*>(M), static_cast<T*>(work),
-      static_cast<T*>(x), G, m);
-  return static_cast<int>(cudaGetLastError());
+int launch_as(const void* D, const void* E, const void* r, void* store,
+              void* lev, void* work, void* x, int G, int m, void* stream) {
+  const size_t smem = kSmemTiles ? tile_values(m) * sizeof(T) : 0;
+  void* args[] = {&D, &E, &r, &store, &lev, &work, &x, &G, &m};
+  return dense_tile::launch_cooperative(tridiag_solve_kernel<T, kSmemTiles>,
+                                        (G + 1) / 2, kThreads, smem, args,
+                                        stream);
 }
 
 // work == nullptr: the tiles in shared memory
 template <typename T>
-int launch(const void* D, const void* E, const void* r, void* M, void* work,
-           void* x, int G, int m, void* stream) {
-  if (m < 1 || m > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+int launch(const void* D, const void* E, const void* r, void* store,
+           void* lev, void* work, void* x, int G, int m, void* stream) {
+  if (G < 1 || m < 1 || m > 512) return static_cast<int>(cudaErrorInvalidValue);
   return work == nullptr
-             ? launch_as<T, true>(D, E, r, M, work, x, G, m, stream)
-             : launch_as<T, false>(D, E, r, M, work, x, G, m, stream);
+             ? launch_as<T, true>(D, E, r, store, lev, work, x, G, m, stream)
+             : launch_as<T, false>(D, E, r, store, lev, work, x, G, m, stream);
 }
 
 }  // namespace
 
 extern "C" int tridiag_solve_f32(const void* D, const void* E, const void* r,
-                                 void* M, void* work, void* x, int G, int m,
-                                 void* stream) {
-  return launch<float>(D, E, r, M, work, x, G, m, stream);
+                                 void* store, void* lev, void* work, void* x,
+                                 int G, int m, void* stream) {
+  return launch<float>(D, E, r, store, lev, work, x, G, m, stream);
 }
 
 extern "C" int tridiag_solve_f64(const void* D, const void* E, const void* r,
-                                 void* M, void* work, void* x, int G, int m,
-                                 void* stream) {
-  return launch<double>(D, E, r, M, work, x, G, m, stream);
+                                 void* store, void* lev, void* work, void* x,
+                                 int G, int m, void* stream) {
+  return launch<double>(D, E, r, store, lev, work, x, G, m, stream);
 }

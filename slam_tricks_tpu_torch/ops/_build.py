@@ -4,7 +4,8 @@
 all started together, and links the objects into one shared library with a
 plain C interface, ``build/kernels/libslam_kernels_<hash>.so`` at the root
 of the checkout, at the first call of ``library()``. The hash
-covers the sources and the flags, so an edited source builds anew. The
+covers the sources, the headers they share (``csrc/*.cuh``) and the flags,
+so an edited source builds anew. The
 library is loaded with ``ctypes``; each C entry point takes its pointers and
 the CUDA stream as ``void*`` and returns ``cudaGetLastError()`` after its
 launch, which the wrappers turn into an exception.
@@ -31,11 +32,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # ba_assemble: R_flat, t, points, uv0, uv1, w, cam_of_slot, C, K, L,
 #              cam_red, lm_red, W, stream
 _BA = [_P] * 7 + [_I] * 3 + [_P] * 4
-# spd_solve: S, b, A (scratch), x, n, stream
-_SPD = [_P] * 4 + [_I, _P]
-# tridiag_solve: D, E, r, M (scratch), work (tile scratch or NULL), x, G, m,
-#                stream
-_TRI = [_P] * 6 + [_I, _I, _P]
+# spd_solve: S, b, A (scratch), yz (scratch), x, flags (scratch), n, stream
+_SPD = [_P] * 6 + [_I, _P]
+# tridiag_solve: D, E, r, store, lev (scratch), work (tile scratch or NULL),
+#                x, G, m, stream
+_TRI = [_P] * 7 + [_I, _I, _P]
 
 
 def _undistort(scalar):
@@ -67,7 +68,7 @@ def _nvcc():
 def library_path():
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libslam_kernels_{h.hexdigest()[:16]}.so"

@@ -3,10 +3,13 @@
 ``spd_solve`` runs the CUDA kernel ``csrc/spd_solve.cu`` for CUDA tensors and
 the plain torch version ``spd_solve_plain`` for CPU tensors. The kernel
 replaces ``slam_tricks_tpu/ops/pallas_chol.py::_kernel`` (called by
-``chol_solve_padded`` / ``chol_solve``): one block factors S = UᵀU in place
-on a device-memory copy of S (which stays in L2), by panels of 32 rows held
-in shared memory, and runs both substitutions; n needs no padding. It takes
-float32 and float64.
+``chol_solve_padded`` / ``chol_solve``): a right-looking tiled Cholesky
+with a lookahead, S = UᵀU read from the upper triangle of S, with both
+substitutions fused, in one cooperative launch of a persistent grid (at
+most one block an SM, one grid barrier a tile row). It works in place on a
+device-memory copy of S cut into 32 x 32 tiles; n needs no padding. It
+takes float32 and float64 and any n <= ``MAX_N`` = 46340, where n² still
+fits the kernel's 32-bit element offsets; shared memory does not bound n.
 
 The two differ on a matrix that is not positive definite: the kernel, like
 the Pallas one, clamps each pivot at 1e-30 and returns finite values, while
@@ -21,7 +24,8 @@ from slam_tricks_tpu_torch.ops import _build
 
 LAUNCHES = 0    # kernel launches since the last reset (chip_smoke.py reads it)
 
-_PANEL, _PANEL_PAD = 32, 128  # the kernel's shared-memory panel: rows, padding
+MAX_N = 46340   # n * n < 2**31: the kernel's element offsets are 32-bit ints
+TILE = 32       # the kernel's tile: a lane a column
 
 
 def spd_solve_plain(S, b):
@@ -32,28 +36,40 @@ def spd_solve_plain(S, b):
     return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
+def check_size(n):
+    """Raise unless the kernel takes an n x n system."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"spd_solve: n={n} is outside the kernel's "
+                         f"1 <= n <= {MAX_N}")
+
+
 def _launch(S, b):
     global LAUNCHES
     dtype, device = S.dtype, S.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"spd_solve kernel takes float32/float64, not {dtype}")
+    if S.dim() != 2:
+        raise ValueError(f"spd_solve: S must be (n, n), got {tuple(S.shape)}")
     n = S.shape[0]
-    if (S.dim() != 2 or S.shape[1] != n or n < 1 or not S.is_contiguous()
-            or b.shape != (n,) or b.dtype != dtype or b.device != device
+    check_size(n)
+    if (S.shape[1] != n or not S.is_contiguous() or b.shape != (n,)
+            or b.dtype != dtype or b.device != device
             or not b.is_contiguous()):
         raise ValueError(
             f"spd_solve: need contiguous S (n, n) and b (n,) of one dtype on "
             f"one device; got S {tuple(S.shape)} {S.dtype} {S.device}, "
             f"b {tuple(b.shape)} {b.dtype} {b.device}")
-    smem = (_PANEL * (n + _PANEL_PAD) + n + _PANEL) * S.element_size()
-    if smem > _build.SMEM_PER_BLOCK:
-        raise ValueError(f"spd_solve: n={n} is too large for one block")
     lib = _build.library()
-    A = torch.empty_like(S)         # the factor's scratch
+    nt = -(-n // TILE)
+    # the factor's scratch: the copy of S, then the nt inverted diagonal tiles
+    A = torch.empty(n * n + nt * TILE * TILE, dtype=dtype, device=device)
+    yz = torch.empty(2 * n, dtype=dtype, device=device)
     x = torch.empty_like(b)
+    flags = torch.empty(nt, dtype=torch.int32, device=device)
     fn = lib.spd_solve_f32 if dtype == torch.float32 else lib.spd_solve_f64
     with torch.cuda.device(device):
-        rc = fn(S.data_ptr(), b.data_ptr(), A.data_ptr(), x.data_ptr(), n,
+        rc = fn(S.data_ptr(), b.data_ptr(), A.data_ptr(), yz.data_ptr(),
+                x.data_ptr(), flags.data_ptr(), n,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "spd_solve")
     LAUNCHES += 1

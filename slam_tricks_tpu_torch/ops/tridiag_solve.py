@@ -7,12 +7,20 @@ r (G, m); it returns x (G, m). It runs the CUDA kernel
 ``csrc/tridiag_solve.cu`` for CUDA tensors and the plain torch version
 ``tridiag_solve_plain`` for CPU tensors. The kernel replaces
 ``slam_tricks_tpu/ops/pallas_tridiag.py::_kernel`` (called by
-``tridiag_solve``): one block runs the whole two-sweep recursion. It takes
-float32 and float64, any G >= 1 and any m <= 512 (``MAX_M``; the wrapper
-raises beyond), with no padding of m. Its three m x m working tiles sit in
-shared memory up to m = 138 in float32 and m = 97 in float64, and in a
-global scratch beyond, so every band K <= 32 of the banded layout
-(m = 6 K <= 192) goes through.
+``tridiag_solve``) with block cyclic reduction, the JAX package's default
+(``banded_flat._block_tridiag_cr_multi``), in one cooperative launch of a
+persistent grid: log2(G) levels, the odd rows of a level eliminated at once
+by one block each, three grid barriers a level. It takes float32 and float64,
+any G >= 1 (odd G and odd levels included, with no padding) and any
+m <= 512 (``MAX_M``; the wrapper raises beyond), with no padding of m. A
+block's working tile sits in shared memory up to m = 128 in float32 and
+m = 96 in float64, and in a global scratch beyond, so every band K <= 32 of
+the banded layout (m = 6 K <= 192) goes through.
+
+A Schur complement that is not positive definite gives NaN, in the kernel
+and in the plain version alike (as JAX's cyclic reduction does); the
+Pallas kernel's unpivoted Gauss-Jordan gave finite values there. The
+solver's bad-step branch turns a non-finite step into a zero step.
 """
 
 import torch
@@ -20,57 +28,81 @@ import torch
 from slam_tricks_tpu_torch.ops import _build
 
 LAUNCHES = 0    # kernel launches since the last reset (chip_smoke.py reads it)
-MAX_M = 512     # one thread a column of a tile
+MAX_M = 512
 
 
 def tile_values(m):
-    """Values of the kernel's three m x m tiles, rows padded to an odd
-    stride."""
-    return 3 * m * (m | 1)
+    """Values of a block's working tile: the m x m block padded with the
+    identity to mp = m rounded up to 32 (the kernel's panels), 2 m + 1
+    columns carried along, and mp scales."""
+    mp = -(-m // 32) * 32
+    return mp * (mp + 2 * m + 2)
 
 
 def smem_bytes(m, dtype):
-    """Shared memory the kernel needs to keep its tiles there for blocks of
-    size m: the tiles and three vectors."""
+    """Shared memory the kernel needs to keep a block's tile there."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return (tile_values(m) + 3 * m) * itemsize
+    return tile_values(m) * itemsize
 
 
 def flops(G, m):
     """Floating-point operations an SPD block-tridiagonal solve needs (block
-    Cholesky, not the kernel's Gauss-Jordan): per block a Cholesky factor
-    (m^3 / 3) and, past the first, a triangular solve L^-1 E^T (m^3) and the
-    symmetric update D - V^T V (m^3); per block ~8 m^2 for the right-hand
-    side, the two triangular solves of each sweep and E^T x."""
+    Cholesky, not the kernel's cyclic reduction): per block a Cholesky
+    factor (m^3 / 3) and, past the first, a triangular solve L^-1 E^T (m^3)
+    and the symmetric update D - V^T V (m^3); per block ~8 m^2 for the
+    right-hand side, the two triangular solves of each sweep and E^T x."""
     return m ** 3 * G // 3 + 2 * m ** 3 * (G - 1) + 8 * m ** 2 * G
 
 
+def _nan_where(info, W):
+    bad = (info != 0).reshape(-1, *([1] * (W.dim() - 1)))
+    return torch.where(bad, torch.full_like(W, float("nan")), W)
+
+
 def tridiag_solve_plain(D, E, r):
-    """Plain torch version, the Pallas kernel's recursion as a loop over G:
-    forward M_g = (D_g - E_{g-1} M_{g-1} E_{g-1}^T)^-1,
-    u_g = M_g (r_g - E_{g-1} u_{g-1}); backward x_g = u_g - M_g E_g^T x_{g+1}.
-    Each inverse goes through a Cholesky factor, so a Schur complement that
-    is not positive definite gives NaN, as the JAX package's Cholesky-based
-    solves do, which the solver's bad-step branch turns into a zero step.
-    The kernel's unpivoted Gauss-Jordan, like the Pallas kernel's, returns
-    finite values there instead; on SPD input both solve the same system.
-    """
-    G = D.shape[0]
-    Ms, us = [], []
-    for g in range(G):
-        if g == 0:
-            A, rhs = D[0], r[0]
-        else:
-            A = D[g] - E[g - 1] @ Ms[-1] @ E[g - 1].T
-            rhs = r[g] - E[g - 1] @ us[-1]
-        Lc, info = torch.linalg.cholesky_ex(A)
-        Ms.append(torch.where(info == 0, torch.cholesky_inverse(Lc),
-                              torch.full_like(A, float("nan"))))
-        us.append(Ms[-1] @ rhs)
-    xs = [us[-1]]
-    for g in range(G - 2, -1, -1):
-        xs.append(us[g] - Ms[g] @ (E[g].T @ xs[-1]))
-    return torch.stack(xs[::-1])
+    """Plain torch version, the kernel's block cyclic reduction level by
+    level, batched: at each level the odd rows i give
+    W_i = D_i^-1 [E_{i-1} | E_i^T | r_i] (Cholesky), the even rows the
+    half-size system; one block is solved by Cholesky; back-substitution
+    x_i = M r_i - M E_{i-1} x_{i-1} - M E_i^T x_{i+1}. A block that is not
+    positive definite gives NaN, as in the kernel."""
+    m = D.shape[-1]
+    levels = []
+    Dc, Ec, rc = D, E, r
+    while Dc.shape[0] > 1:
+        Gc = Dc.shape[0]
+        hodd, hev = Gc // 2, (Gc + 1) // 2
+        Ea = Ec[0::2][:hodd]                  # E_{i-1} = E_2k
+        Eb = torch.zeros_like(Ea)             # E_i = E_2k+1 (0 past the end)
+        Eb[:(Gc - 1) // 2] = Ec[1::2]
+        rhs = torch.cat([Ea, Eb.transpose(1, 2), rc[1::2, :, None]], dim=2)
+        L, info = torch.linalg.cholesky_ex(Dc[1::2])
+        W = _nan_where(info, torch.cholesky_solve(rhs, L))
+        MoEe, MoEoT, Mro = W[..., :m], W[..., m:2 * m], W[..., 2 * m]
+        Dn = Dc[0::2].clone()
+        rn = rc[0::2].clone()
+        Dn[:hodd] -= Ea.transpose(1, 2) @ MoEe
+        rn[:hodd] -= (Ea.transpose(1, 2) @ Mro[..., None])[..., 0]
+        Eu = Ec[1::2][:hev - 1]               # E_2k-1 for k >= 1
+        Dn[1:] -= Eu @ MoEoT[:hev - 1]
+        rn[1:] -= (Eu @ Mro[:hev - 1, :, None])[..., 0]
+        En = -(Eu @ MoEe[:hev - 1])           # -E_2k+1 M E_2k, k < hev - 1
+        levels.append((Gc, W))
+        Dc, Ec, rc = Dn, En, rn
+    L, info = torch.linalg.cholesky_ex(Dc[0])
+    x = _nan_where(info[None], torch.cholesky_solve(rc[0][:, None], L)[None])
+    x = x[..., 0]
+    for Gc, W in reversed(levels):
+        hodd = Gc // 2
+        xe = x
+        xr = torch.zeros_like(xe[:hodd])
+        xr[:xe.shape[0] - 1] = xe[1:hodd + 1]
+        xo = (W[..., 2 * m] - (W[..., :m] @ xe[:hodd, :, None])[..., 0]
+              - (W[..., m:2 * m] @ xr[..., None])[..., 0])
+        x = torch.empty((Gc, m), dtype=D.dtype, device=D.device)
+        x[0::2] = xe
+        x[1::2] = xo
+    return x
 
 
 def _launch(D, E, r):
@@ -92,16 +124,23 @@ def _launch(D, E, r):
     if m > MAX_M:
         raise ValueError(f"tridiag_solve: blocks of m={m} > {MAX_M}")
     lib = _build.library()
-    M = torch.empty_like(D)      # the kernel's scratch: M_g for the backward
+    hmax = (G + 1) // 2
+    # the level store (W_i of every odd row of every level) and the two
+    # ping-pong level buffers (D, E, r of the half-size system)
+    store = torch.empty(max(G - 1, 1) * m * (2 * m + 1), dtype=dtype,
+                        device=device)
+    lev = torch.empty(2 * hmax * (2 * m * m + m), dtype=dtype, device=device)
     x = torch.empty_like(r)
     work = None                  # tiles in shared memory, else here
     if smem_bytes(m, dtype) > _build.SMEM_PER_BLOCK:
-        work = torch.empty(tile_values(m), dtype=dtype, device=device)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        work = torch.empty(min(sms, hmax) * tile_values(m), dtype=dtype,
+                           device=device)
     fn = lib.tridiag_solve_f32 if dtype == torch.float32 else lib.tridiag_solve_f64
     with torch.cuda.device(device):
-        rc = fn(D.data_ptr(), E.data_ptr(), r.data_ptr(), M.data_ptr(),
-                None if work is None else work.data_ptr(), x.data_ptr(), G, m,
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn(D.data_ptr(), E.data_ptr(), r.data_ptr(), store.data_ptr(),
+                lev.data_ptr(), None if work is None else work.data_ptr(),
+                x.data_ptr(), G, m, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "tridiag_solve")
     LAUNCHES += 1
     return x

@@ -8,9 +8,10 @@ so it also runs on a GPU machine that has none:
 
 Every test skips without a CUDA device. Tolerances, as max |a - b| / max |b|:
 ba_assemble 1e-4 in f32 (float atomics sum in a run-dependent order) and
-1e-10 in f64; spd_solve 5e-6 on well-conditioned SPD systems (two f32
-Cholesky solves); tridiag_solve 1e-4 in f32 and 1e-9 in f64 on
-well-conditioned systems (Gauss-Jordan inverses against Cholesky ones);
+1e-10 in f64; spd_solve 5e-6 in f32 and 1e-9 in f64 on well-conditioned
+SPD systems (two Cholesky solves, tiles against cuSOLVER's blocking);
+tridiag_solve 1e-4 in f32 and 1e-9 in f64 on well-conditioned systems (the
+same cyclic reduction, sums in another order);
 undistort 2.5e-4 px in f32 (a few ulp at 700 px; the compiler fuses
 multiply-adds) and 1e-9 px in f64; the f64 solves to 1e-8 in the poses,
 as against JAX."""
@@ -69,20 +70,57 @@ def test_ba_assemble_kernel_matches_plain(dtype, tol):
         assert rel_err(a, b) < tol, (name, rel_err(a, b))
 
 
-@pytest.mark.parametrize("n", [36, 200, 576])
-def test_spd_solve_kernel_matches_plain(n):
-    dev = require_cuda()
+def _spd_system(n, dtype, device):
     rng = np.random.default_rng(n)
     A = rng.normal(size=(n, n))
-    S = torch.as_tensor((A @ A.T + n * np.eye(n)).astype(np.float32),
-                        device=dev)
-    b = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    S = torch.as_tensor(A @ A.T + n * np.eye(n), dtype=dtype, device=device)
+    b = torch.as_tensor(rng.normal(size=n), dtype=dtype, device=device)
+    return S, b
+
+
+# 577 = 18 * 32 + 1 leaves a ragged last tile of one row; 1 and 31 are one
+# ragged tile; 300 in f64 is ragged too
+@pytest.mark.parametrize("n, dtype, tol", [
+    (36, torch.float32, 5e-6), (200, torch.float32, 5e-6),
+    (576, torch.float32, 5e-6), (577, torch.float32, 5e-6),
+    (1, torch.float32, 5e-6), (31, torch.float32, 5e-6),
+    (300, torch.float64, 1e-9), (577, torch.float64, 1e-9)])
+def test_spd_solve_kernel_matches_plain(n, dtype, tol):
+    dev = require_cuda()
+    S, b = _spd_system(n, dtype, dev)
     ref = spd_solve.spd_solve_plain(S, b)
     before = spd_solve.LAUNCHES
     x = spd_solve.spd_solve(S, b)
     torch.cuda.synchronize()
     assert spd_solve.LAUNCHES == before + 1
-    assert rel_err(x, ref) < 5e-6
+    assert x.dtype == dtype
+    assert rel_err(x, ref) < tol
+
+
+def test_spd_solve_kernel_at_size_limit():
+    """n = MAX_N, the largest the kernel takes (n * n < 2**31), solved on
+    the card: S diagonally dominant (off-diagonal entries in [-1, 1],
+    diagonal n), so SPD with a condition number below 3; held by the
+    residual |Sx - b| / |b| < 1e-4 in f32."""
+    dev = require_cuda()
+    n = spd_solve.MAX_N
+    gen = torch.Generator(device=dev).manual_seed(0)
+    S = torch.rand((n, n), generator=gen, device=dev).mul_(2).sub_(1)
+    S.diagonal().fill_(float(n))
+    b = torch.rand(n, generator=gen, device=dev)
+    x = spd_solve.spd_solve(S, b)   # reads the upper triangle only
+    U = torch.triu(S)
+    res = U @ x + torch.triu(S, 1).T @ x - b
+    del U
+    assert float(res.norm() / b.norm()) < 1e-4
+
+
+def test_spd_solve_kernel_refuses_too_large_n():
+    dev = require_cuda()
+    n = spd_solve.MAX_N + 1
+    S = torch.zeros(1, device=dev).expand(n, n)   # the size check comes first
+    with pytest.raises(ValueError, match="outside"):
+        spd_solve.spd_solve(S, torch.zeros(n, device=dev))
 
 
 def test_spd_solve_kernel_clamps_non_spd_pivot():
@@ -120,14 +158,20 @@ def _tridiag_system(G, m, seed, dtype, device):
                  for a in (D, E, r))
 
 
-# m = 138 (f32) and 97 (f64) are the largest with the tiles in shared
-# memory; 139, 98 and 192 (the widest band, K = 32) take the global scratch
+# m = 128 (f32) and 96 (f64) are the largest with a block's tile in shared
+# memory; 129, 97 and 192 (the widest band, K = 32) take the global scratch;
+# m = 8, 16, 48, 97, 99, 129, 138 and 139 pad the tile to whole panels;
+# G = 127, 5 and 13 have levels of odd size
 @pytest.mark.parametrize("G, m, dtype, tol", [
     (128, 48, torch.float32, 1e-4), (12, 16, torch.float64, 1e-9),
     (1, 48, torch.float32, 1e-4), (3, 138, torch.float32, 1e-4),
     (2, 97, torch.float64, 1e-9), (3, 139, torch.float32, 1e-4),
     (2, 98, torch.float64, 1e-9), (4, 192, torch.float32, 1e-4),
-    (4, 192, torch.float64, 1e-9)])
+    (4, 192, torch.float64, 1e-9), (127, 48, torch.float32, 1e-4),
+    (5, 48, torch.float32, 1e-4), (13, 8, torch.float64, 1e-9),
+    (3, 99, torch.float64, 1e-9), (16, 192, torch.float32, 1e-4),
+    (2, 128, torch.float32, 1e-4), (2, 129, torch.float32, 1e-4),
+    (2, 96, torch.float64, 1e-9)])
 def test_tridiag_kernel_matches_plain(G, m, dtype, tol):
     dev = require_cuda()
     D, E, r = _tridiag_system(G, m, G + m, dtype, dev)
@@ -138,6 +182,18 @@ def test_tridiag_kernel_matches_plain(G, m, dtype, tol):
     assert tridiag_solve.LAUNCHES == before + 1
     assert x.shape == (G, m) and x.dtype == dtype
     assert rel_err(x, ref) < tol
+
+
+def test_tridiag_kernel_non_spd_gives_nan():
+    """A block that is not positive definite gives NaN, as in the plain
+    version (and JAX's cyclic reduction), which the LM loop rejects."""
+    dev = require_cuda()
+    D, E, r = _tridiag_system(5, 48, 1, torch.float32, dev)
+    D[2] = -D[2]
+    x = tridiag_solve.tridiag_solve(D, E, r)
+    torch.cuda.synchronize()
+    assert torch.isnan(x).any()
+    assert torch.isnan(tridiag_solve.tridiag_solve_plain(D, E, r)).any()
 
 
 def test_tridiag_kernel_refuses_too_large_blocks():

@@ -68,3 +68,14 @@ def test_plain_flags_non_spd():
     x = spd.spd_solve(S, torch.ones(3))
     assert not torch.isfinite(x).any()
 
+
+
+def test_size_limit():
+    """The kernel takes 1 <= n <= 46340 (n * n < 2**31, its element
+    offsets being 32-bit ints); shared memory no longer bounds n."""
+    spd.check_size(1)
+    spd.check_size(spd.MAX_N)
+    assert spd.MAX_N ** 2 < 2 ** 31 <= (spd.MAX_N + 1) ** 2
+    for n in (0, spd.MAX_N + 1):
+        with pytest.raises(ValueError, match="outside"):
+            spd.check_size(n)

@@ -1,11 +1,14 @@
 """SPD block-tridiagonal solve (slam_tricks_tpu_torch/ops/tridiag_solve.py).
 
-The plain torch version, which the wrapper runs on a CPU tensor, is held
-against the Pallas kernel it replaces, ``pallas_tridiag.tridiag_solve`` in
-interpret mode, and against a dense f64 solve, with the cases and bounds of
+The plain torch version, which the wrapper runs on a CPU tensor and which
+repeats the CUDA kernel's block cyclic reduction, is held against the
+Pallas kernel it replaces, ``pallas_tridiag.tridiag_solve`` in interpret
+mode, and against a dense f64 solve, with the cases and bounds of
 tests/test_pallas_tridiag.py: (12, 16) f64 to 1e-9; (16, 48) f32 to 1e-4 of
-the solution's largest entry; one block; two blocks. The CUDA kernel is
-held against the plain version in test_torch_cuda.py."""
+the solution's largest entry; one block; two blocks. It is also held
+against the JAX package's own cyclic reduction,
+``banded_flat.block_tridiag_solve_cr``, at 1e-9 in f64, odd G included. The
+CUDA kernel is held against the plain version in test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +16,7 @@ import pytest
 import torch
 
 from slam_tricks_tpu.ops.pallas_tridiag import tridiag_solve as pallas_solve
+from slam_tricks_tpu.solvers.banded_flat import block_tridiag_solve_cr
 from slam_tricks_tpu_torch.ops import tridiag_solve as tri
 
 
@@ -57,13 +61,36 @@ def test_plain_matches_pallas_and_dense(G, m, seed, dtype, tol):
                   - np.asarray(x_pal, np.float64)).max() < tol * scale
 
 
+# G = 7 and 13 have levels of odd size; 1 and 2 reduce at once or not at all
+@pytest.mark.parametrize("G, m, seed", [(7, 8, 1), (13, 8, 4), (1, 8, 6),
+                                        (2, 8, 7), (33, 6, 8)])
+def test_plain_matches_jax_cyclic_reduction(G, m, seed):
+    D, E, r = _system(G, m, seed=seed)
+    x = tri.tridiag_solve(*(torch.as_tensor(a) for a in (D, E, r)))
+    ref = np.asarray(block_tridiag_solve_cr(jnp.asarray(D), jnp.asarray(E),
+                                            jnp.asarray(r)))
+    assert np.abs(x.numpy() - ref).max() < 1e-9
+    assert np.abs(x.numpy() - _dense(D, E, r)).max() < 1e-9
+
+
+def test_plain_non_spd_gives_nan():
+    """A block that is not positive definite gives NaN, as in the kernel,
+    which the solver's bad-step branch turns into a zero step."""
+    D, E, r = _system(5, 8, seed=9)
+    D[2] = -D[2]
+    x = tri.tridiag_solve(*(torch.as_tensor(a) for a in (D, E, r)))
+    assert np.isnan(x.numpy()).any()
+
+
 def test_size_limit():
-    """The kernel keeps its three m x m tiles in shared memory up to m = 138
-    in f32 and m = 97 in f64, in a global scratch beyond; it takes every
-    m = 6 K of the banded layout's bands K <= 32."""
+    """A block's working tile (the m x m block padded to whole 32-row
+    panels, 2 m + 1 columns carried along) sits in shared memory up to
+    m = 128 in f32 and m = 96 in f64, in a global scratch beyond; the kernel
+    takes every m = 6 K of the banded layout's bands K <= 32."""
     from slam_tricks_tpu_torch.ops._build import SMEM_PER_BLOCK
 
-    for dtype, m_max in ((torch.float32, 138), (torch.float64, 97)):
+    for dtype, m_max in ((torch.float32, 128), (torch.float64, 96)):
         assert tri.smem_bytes(m_max, dtype) <= SMEM_PER_BLOCK
         assert tri.smem_bytes(m_max + 1, dtype) > SMEM_PER_BLOCK
+    assert tri.tile_values(48) == 64 * (64 + 97 + 1)
     assert tri.MAX_M >= 6 * 32
