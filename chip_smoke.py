@@ -5,9 +5,10 @@
 From the root of a checkout: builds the CUDA kernels from the sources in
 slam_tricks_tpu_torch/csrc, holds each against its plain torch version at the
 shapes of the paths that run it (and tridiag_solve also at the widest band's
-(16, 192), its global-tile instance), checks small solves through the
-kernels against the CPU path, then drives the port's three paths through the
-kernels, each with every launch count set to 0 just before it:
+(16, 192), its global-tile instance), holds two launches of ba_assemble
+against each other bitwise, checks small solves through the kernels against
+the CPU path, then drives the port's three paths through the kernels, each
+with every launch count set to 0 just before it:
 
 - A, the headline bundle adjustment (st20 cube room: 96 cameras, 2400
   landmarks, 83,338 observations, 20 LM iterations, float32, TF32 off);
@@ -17,9 +18,11 @@ kernels, each with every launch count set to 0 just before it:
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps;
 
 and checks what each returns. Prints one line per phase, then a JSON line
-with each kernel's launches, error, times (CUDA events, median of rounds),
-bound and library time, the card's name and power limit from nvidia-smi,
-and last the JSON status line. With --profile DIR it also writes
+with each kernel's launches, error, times (CUDA events, median of rounds:
+`ms`, `plain_ms` and `library_ms` back to back, host included, as in every
+earlier run; `device_ms` on the card alone, its calls queued behind a head
+start of matrix products) and bound, the card's name and power limit from
+nvidia-smi, and last the JSON status line. With --profile DIR it also writes
 torch.profiler tables of paths A and B to DIR.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -37,7 +40,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # acceptance bounds
-ASSEMBLE_REL_TOL = 1e-4     # per output, max |k - p| / max |p|: f32 atomics
+ASSEMBLE_REL_TOL = 1e-4     # per output, max |k - p| / max |p|: f32 sums in
+#                             another fixed order than plain's index_add_
 SPD_RES_FACTOR = 10.0       # kernel residual <= this x the plain one (+ eps)
 SPD_RANDOM_REL_TOL = 5e-6   # x vs plain x on a well-conditioned SPD matrix
 TRI_RES_FACTOR = 10.0       # tridiag residual <= this x the plain one (+ eps)
@@ -58,20 +62,32 @@ def _log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def _time_ms(fn, rounds=5, reps=10):
-    """Per-call device time of fn in ms: CUDA events around `reps` calls,
-    median over `rounds` (after one warm-up call)."""
+def _time_ms(fn, rounds=5, reps=10, head_start=False):
+    """Per-call time of fn in ms: CUDA events around `reps` calls, median
+    over `rounds` (after one warm-up call). Back to back, the events time
+    whichever is slower, the card or the host queuing the calls. With
+    head_start, each round queues its calls behind ~60 ms of matrix
+    products, so that the host has queued them all before the card reaches
+    the first: the events then time the card alone (checked: the start
+    event must not have run when the last call is queued)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    busy = torch.ones((8192, 8192), device="cuda") if head_start else None
     times = []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if head_start:
+            for _ in range(3):
+                busy @ busy
         start.record()
         for _ in range(reps):
             fn()
+        if head_start and start.query():
+            raise AssertionError("head start too short: the card reached the "
+                                 "timed calls before the host queued them")
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -79,9 +95,11 @@ def _time_ms(fn, rounds=5, reps=10):
 
 
 def _paired_ms(kernel, plain, **kw):
-    """Kernel and plain times taken in turns: plain, kernel, kernel, plain."""
+    """(kernel ms, plain ms, kernel device ms): the first two back to back,
+    taken in turns (plain, kernel, kernel, plain), the last queued behind a
+    head start."""
     p1, k1, k2, p2 = (_time_ms(f, **kw) for f in (plain, kernel, kernel, plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, _time_ms(kernel, head_start=True, **kw)
 
 
 def _rel(a, b):
@@ -180,15 +198,17 @@ def main():
                   f"{time.perf_counter() - t0:.2f} s "
                   f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process a source)")
 
-    def check_assemble(args_, label):
-        """Kernel 1 against plain on args_; returns (max |k - p|, ms,
-        plain ms, bound ms, bound_by)."""
-        out_k = ba_assemble.linearize_assemble(*args_)
+    def check_assemble(args_, index, label):
+        """Kernel 1 against plain on args_ (the kernel with the layout's
+        camera index), and two launches against each other bitwise; returns
+        (max |k - p|, ms, plain ms, device ms, bound ms, bound_by)."""
+        out_k = ba_assemble.linearize_assemble(*args_, index)
         out_p = ba_assemble.linearize_assemble_plain(*args_)
+        out_k2 = ba_assemble.linearize_assemble(*args_, index)
         torch.cuda.synchronize()
         err = 0.0
-        for name, a, b in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
-                              out_k, out_p):
+        for name, a, b, a2 in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
+                                  out_k, out_p, out_k2):
             rel = _rel(a, b)
             err = max(err, float((a - b).abs().max()))
             _log("ba_assemble", f"{label} {name} {tuple(a.shape)} max rel err "
@@ -196,17 +216,24 @@ def main():
             if not rel <= ASSEMBLE_REL_TOL:
                 raise AssertionError(f"ba_assemble {label} {name}: rel err "
                                      f"{rel} > {ASSEMBLE_REL_TOL}")
-        ms, plain_ms = _paired_ms(
-            lambda: ba_assemble.linearize_assemble(*args_),
+            if not torch.equal(a, a2):
+                raise AssertionError(f"ba_assemble {label} {name}: two "
+                                     f"launches differ")
+        _log("ba_assemble", f"{label}: two launches bitwise equal in every "
+                            f"output; {index.slots.shape[0]} camera-pass "
+                            f"segments of {index.slots.shape[1]} slots")
+        ms, plain_ms, device_ms = _paired_ms(
+            lambda: ba_assemble.linearize_assemble(*args_, index),
             lambda: ba_assemble.linearize_assemble_plain(*args_))
         live = int((args_[5] > 0).sum())
         bound_ms, bound_by = _bound(
             _nbytes(*args_, *out_k[:4]) + _nbytes(out_k[4]),
             live * ba_assemble.FLOPS_PER_SLOT)
-        _log("ba_assemble", f"{label}: kernel {ms:.4f} ms, plain torch "
-                            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                            f"({bound_by})")
-        return err, ms, plain_ms, bound_ms, bound_by
+        _log("ba_assemble", f"{label}: kernel {ms:.4f} ms a call "
+                            f"({device_ms:.4f} ms on the card alone); plain "
+                            f"torch {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+                            f"ms ({bound_by})")
+        return err, ms, plain_ms, device_ms, bound_ms, bound_by
 
     # ---- 3. kernel 1: linearize + assemble at the headline shapes ----
     scene = make_scene(n_per_wall=400, n_cams=96, seed=0, dtype=f32, device=dev)
@@ -218,8 +245,8 @@ def main():
     _log("scene A", f"C={C} L={L} K={K} live observations={n_obs}")
     args_a = (poses0.R.reshape(C, 9), poses0.t, points0, work.uv0, work.uv1,
               work.w, work.cam_of_slot)
-    k1 = dict(zip(("err", "ms", "plain_ms", "bound_ms", "bound_by"),
-                  check_assemble(args_a, "path A")))
+    k1_keys = ("err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")
+    k1 = dict(zip(k1_keys, check_assemble(args_a, work.cam_index, "path A")))
 
     # ---- 4. kernel 2: SPD solve of the first step's S (n = 6C) ----
     out_p = ba_assemble.linearize_assemble_plain(*args_a)
@@ -247,13 +274,15 @@ def main():
                                  f"{SPD_RES_FACTOR} x plain {res_p} + 1e-6")
         if label == "random SPD" and not diff <= SPD_RANDOM_REL_TOL:
             raise AssertionError(f"spd_solve {label}: |x - x_plain| rel {diff}")
-    k2_ms, k2_plain_ms = _paired_ms(lambda: spd_solve.spd_solve(S, b),
-                                    lambda: spd_solve.spd_solve_plain(S, b))
+    k2_ms, k2_plain_ms, k2_device_ms = _paired_ms(
+        lambda: spd_solve.spd_solve(S, b),
+        lambda: spd_solve.spd_solve_plain(S, b))
     k2_lib_ms = _time_ms(lambda: torch.cholesky_solve(
         b[:, None], torch.linalg.cholesky_ex(S)[0]))
     n = S.shape[0]
     k2_bound, k2_by = _bound(_nbytes(S, b, b), n ** 3 / 3 + 2 * n ** 2)
-    _log("spd_solve", f"kernel {k2_ms:.4f} ms, plain torch (cholesky_ex + "
+    _log("spd_solve", f"kernel {k2_ms:.4f} ms a call ({k2_device_ms:.4f} "
+                      f"ms on the card alone); plain torch (cholesky_ex + "
                       f"cholesky_solve) {k2_plain_ms:.4f} ms, library "
                       f"{k2_lib_ms:.4f} ms, bound {k2_bound:.5f} ms ({k2_by})")
 
@@ -333,8 +362,7 @@ def main():
     tpoints_s = tpoints0[bw.gather_idx]
     args_b = (tposes0.R.reshape(CB, 9), tposes0.t, tpoints_s, bw.uv0, bw.uv1,
               bw.w, bw.cam_of_slot)
-    k1b = dict(zip(("err", "ms", "plain_ms", "bound_ms", "bound_by"),
-                   check_assemble(args_b, "path B")))
+    k1b = dict(zip(k1_keys, check_assemble(args_b, bw.cam_index, "path B")))
 
     # ---- 9. kernel 3: block-tridiagonal solve ----
     Gt, mt = 128, 48        # the system of bench.py:stage_tridiag_ab
@@ -381,7 +409,7 @@ def main():
             raise AssertionError(f"tridiag_solve {label}: rel diff {diff}")
     Tdense = dense(Dm, Em).float()
     rdense = rm.reshape(-1, 1)
-    k3_ms, k3_plain_ms = _paired_ms(
+    k3_ms, k3_plain_ms, k3_device_ms = _paired_ms(
         lambda: tridiag_solve.tridiag_solve(Dm, Em, rm),
         lambda: tridiag_solve.tridiag_solve_plain(Dm, Em, rm), reps=3)
     k3_lib_ms = _time_ms(lambda: torch.cholesky_solve(
@@ -391,7 +419,8 @@ def main():
     k3_bound, k3_by = _bound(_nbytes(Dm, Em, rm, rm),
                              tridiag_solve.flops(Gb, mb))
     _log("tridiag_solve", f"path B shape (G, m)=({Gb}, {mb}): kernel "
-                          f"{k3_ms:.4f} ms, plain torch {k3_plain_ms:.4f} ms, "
+                          f"{k3_ms:.4f} ms a call ({k3_device_ms:.4f} ms on "
+                          f"the card alone); plain torch {k3_plain_ms:.4f} ms, "
                           f"library (cholesky_ex + cholesky_solve of the dense "
                           f"{Gb * mb}^2 matrix) {k3_lib_ms:.4f} ms, bound "
                           f"{k3_bound:.5f} ms ({k3_by})")
@@ -417,7 +446,7 @@ def main():
                              f"{TRI_RES_FACTOR} x plain {res_p} + 1e-6")
     Tdense = T64.float()
     rdense = rw.reshape(-1, 1)
-    kw_ms, kw_plain_ms = _paired_ms(
+    kw_ms, kw_plain_ms, kw_device_ms = _paired_ms(
         lambda: tridiag_solve.tridiag_solve(Dw, Ew, rw),
         lambda: tridiag_solve.tridiag_solve_plain(Dw, Ew, rw), reps=3)
     kw_lib_ms = _time_ms(lambda: torch.cholesky_solve(
@@ -427,8 +456,10 @@ def main():
                              tridiag_solve.flops(Gw, mw))
     _log("tridiag_solve", f"K = 32 shape (G, m)=({Gw}, {mw}), tiles in global "
                           f"memory: |Tx-r|/|r| kernel {res_k:.3e} plain "
-                          f"{res_p:.3e}; kernel {kw_ms:.4f} ms, plain torch "
-                          f"{kw_plain_ms:.4f} ms, library (dense {Gw * mw}^2) "
+                          f"{res_p:.3e}; kernel {kw_ms:.4f} ms a call "
+                          f"({kw_device_ms:.4f} ms on the card alone); plain "
+                          f"torch {kw_plain_ms:.4f} ms, library (dense "
+                          f"{Gw * mw}^2) "
                           f"{kw_lib_ms:.4f} ms, bound {kw_bound:.5f} ms "
                           f"({kw_by})")
 
@@ -516,13 +547,14 @@ def main():
         raise AssertionError(f"path E: kernel error {k4_abs} px (bound "
                              f"{UNDISTORT_TOL}), round trip {trip} px (bound "
                              f"{ROUND_TRIP_TOL})")
-    k4_ms, k4_plain_ms = _paired_ms(
+    k4_ms, k4_plain_ms, k4_device_ms = _paired_ms(
         lambda: undistort.undistort(dist_px, params),
         lambda: undistort.undistort_plain(dist_px, params))
     k4_bound, k4_by = _bound(
         2 * _nbytes(dist_px),
         npx * (5 * undistort.FLOPS_PER_STEP + undistort.FLOPS_PER_PIXEL))
-    _log("path E", f"kernel {k4_ms:.4f} ms ({npx / k4_ms * 1e3:.4e} px/s), "
+    _log("path E", f"kernel {k4_ms:.4f} ms a call ({npx / k4_ms * 1e3:.4e}"
+                   f" px/s), {k4_device_ms:.4f} ms on the card alone, "
                    f"plain torch {k4_plain_ms:.4f} ms, bound {k4_bound:.4f} "
                    f"ms ({k4_by})")
 
@@ -535,29 +567,37 @@ def main():
                               "B": launches_b["ba_assemble"]},
          "max_abs_err": max(k1["err"], k1b["err"]),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "device_ms": k1["device_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "deterministic": True,
+         "segments": {"A": work.cam_index.slots.shape[0],
+                      "B": bw.cam_index.slots.shape[0]},
          "path_b": {"ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
+                    "device_ms": k1b["device_ms"],
                     "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"]}},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
          "launches": launches_a["spd_solve"], "max_abs_err": k2_abs,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
+         "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",
          "launches": launches_b["tridiag_solve"], "max_abs_err": k3_abs,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "device_ms": k3_device_ms,
+         "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
-         "m192": {"ms": kw_ms, "plain_ms": kw_plain_ms, "bound_ms": kw_bound,
+         "m192": {"ms": kw_ms, "plain_ms": kw_plain_ms,
+                  "device_ms": kw_device_ms, "bound_ms": kw_bound,
                   "bound_by": kw_by, "library_ms": kw_lib_ms}},
         {"name": "undistort", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/undistort.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_undistort.py:23",
          "launches": launches_e["undistort"], "max_abs_err": k4_abs,
-         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "device_ms": k4_device_ms,
+         "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels,

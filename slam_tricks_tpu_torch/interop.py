@@ -14,6 +14,7 @@ import torch
 
 from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.manifolds.se3 import SE3
+from slam_tricks_tpu_torch.ops.ba_assemble import layout_index
 from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
 from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork
@@ -39,17 +40,20 @@ def obs_from_jax(obs, device=None):
 
 
 def slot_work_from_jax(work, device=None):
-    """The JAX SlotWork's slot grid; its camera one-hot or gather table is
-    not carried over (the port gathers with cam_of_slot)."""
+    """The JAX SlotWork's slot grid, and on a CUDA device its camera index;
+    its camera one-hot or gather table is not carried over (the port
+    gathers with cam_of_slot)."""
+    w, cam = tensor(work.w, device), tensor(work.cam_of_slot, device)
     return SlotWork(uv0=tensor(work.uv0, device), uv1=tensor(work.uv1, device),
-                    w=tensor(work.w, device), mask=tensor(work.mask, device),
-                    cam_of_slot=tensor(work.cam_of_slot, device),
+                    w=w, mask=tensor(work.mask, device), cam_of_slot=cam,
+                    cam_index=layout_index(w, cam, int(work.n_cams)),
                     n_cams=int(work.n_cams))
 
 
 def banded_work_from_jax(work, n_points, device=None):
-    """The JAX BandedWork's slot grid, indices and chunk cameras; its
-    (chunks, C) one-hot becomes each chunk's first camera (its argmax)."""
+    """The JAX BandedWork's slot grid, indices and chunk cameras, and on a
+    CUDA device the grid's camera index; its (chunks, C) one-hot becomes
+    each chunk's first camera (its argmax)."""
     onehot = np.array(work.onehot)
     uv = np.array(work.uv)                           # (K, 2, Lpad)
     K, Lpad = uv.shape[0], uv.shape[2]
@@ -57,10 +61,11 @@ def banded_work_from_jax(work, n_points, device=None):
     c0 = np.argmax(onehot, axis=1).astype(np.int64)   # (chunks,)
     slot_c0 = np.repeat(c0, Lpad // c0.shape[0])
     cam_of_slot = (slot_c0[None, :] + np.arange(K)[:, None]) % C
+    w = tensor(work.weight, device)
+    cam = tensor(cam_of_slot.astype(np.int32), device)
     return BandedWork(
         uv0=tensor(uv[:, 0], device), uv1=tensor(uv[:, 1], device),
-        w=tensor(work.weight, device),
-        cam_of_slot=tensor(cam_of_slot.astype(np.int32), device),
+        w=w, cam_of_slot=cam, cam_index=layout_index(w, cam, C),
         c0=tensor(c0, device),
         scatter_idx=tensor(np.array(work.scatter_idx).astype(np.int64), device),
         gather_idx=tensor(np.array(work.gather_idx).astype(np.int64), device),

@@ -29,9 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# ba_assemble: R_flat, t, points, uv0, uv1, w, cam_of_slot, C, K, L,
-#              cam_red, lm_red, W, stream
-_BA = [_P] * 7 + [_I] * 3 + [_P] * 4
+# ba_assemble: R_flat, t, points, uv0, uv1, w, cam_of_slot, slots,
+#              seg_cam, seg_start, n_seg, C, K, L, Hpp, gp, Hll, gl, W, cost,
+#              scratch, device, stream
+_BA = [_P] * 10 + [_I] * 4 + [_P] * 7 + [_I, _P]
 # spd_solve: S, b, A (scratch), yz (scratch), x, flags (scratch), n, stream
 _SPD = [_P] * 6 + [_I, _P]
 # tridiag_solve: D, E, r, store, lev (scratch), work (tile scratch or NULL),

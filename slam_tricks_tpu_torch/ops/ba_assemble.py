@@ -17,19 +17,29 @@ observation-sorted layout.
 
 ``linearize_assemble`` runs the CUDA kernel ``csrc/ba_assemble.cu`` for CUDA
 tensors and the plain torch version ``linearize_assemble_plain`` for CPU
-tensors. The kernel takes float32 and float64.
+tensors. The kernel takes float32 and float64. It sums the camera side
+through a camera-major index of the live slots (``camera_index``, built
+once a problem by the solvers' layout builders), in a fixed order and
+without float atomics, so it returns the same bits on every launch.
 """
+
+from typing import NamedTuple
 
 import torch
 
 from slam_tricks_tpu_torch.ops import _build
 
-LAUNCHES = 0    # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0    # kernel runs since the last reset (chip_smoke.py reads it)
 
-# floating-point operations of one live slot in the kernel, as written:
-# projection 21, residual and cost 11, Jacobians 40, W 54, camera sums 109,
-# landmark sums 36 (a padding slot only stores its zero W)
+# floating-point operations of one live slot of the function, each term
+# once: projection 21, residual and cost 11, Jacobians 40, W 54, camera sums
+# 109, landmark sums 36 (a padding slot only stores its zero W). The
+# kernel's camera pass computes projection, residual and Jacobians a second
+# time, which this count leaves out.
 FLOPS_PER_SLOT = 271
+
+SEGMENT = 64    # slots of a camera-pass segment: kSeg of the kernel
+_INT32_MAX = 2 ** 31 - 1
 
 _IJ6 = [(i, j) for i in range(6) for j in range(i, 6)]     # 21 entries
 _IJ3 = [(i, j) for i in range(3) for j in range(i, 3)]     # 6 entries
@@ -76,6 +86,16 @@ def _dot2(a0, a1, b0, b1):
     return a0 * b0 + a1 * b1
 
 
+def _camera_columns(jp, r, cost_col):
+    """The 28 camera columns of each slot: the 21 upper-triangle terms of
+    JpᵀJp, the 6 of Jpᵀr and the cost -> (28, K, L)."""
+    (jp0, jp1), (r0, r1) = jp, r
+    cols = [_dot2(jp0[i], jp1[i], jp0[j], jp1[j]) for (i, j) in _IJ6]
+    cols += [_dot2(jp0[i], jp1[i], r0, r1) for i in range(6)]
+    cols += [cost_col]
+    return torch.stack(cols, dim=0)
+
+
 def _split(cam_red, lm_red, W):
     """(C, 28) camera sums and (9, L) landmark sums -> the public tuple."""
     return (cam_red[:, :21], cam_red[:, 21:27], lm_red[:6], lm_red[6:], W,
@@ -91,10 +111,7 @@ def linearize_assemble_plain(R_flat, t, points, uv0, uv1, w, cam_of_slot):
     K, L = w.shape
     (r0, r1), (jp0, jp1), (jl0, jl1), cost_col = _linearize_sm(
         R_flat, t, points, uv0, uv1, w, cam_of_slot)
-    cols = [_dot2(jp0[i], jp1[i], jp0[j], jp1[j]) for (i, j) in _IJ6]
-    cols += [_dot2(jp0[i], jp1[i], r0, r1) for i in range(6)]
-    cols += [cost_col]
-    stack = torch.stack(cols, dim=0).reshape(28, K * L)
+    stack = _camera_columns((jp0, jp1), (r0, r1), cost_col).reshape(28, K * L)
     cam_red = torch.zeros((C, 28), dtype=points.dtype, device=points.device)
     cam_red.index_add_(0, cam_of_slot.reshape(-1).long(), stack.T)
     lm_cols = [_dot2(jl0[i], jl1[i], jl0[j], jl1[j]) for (i, j) in _IJ3]
@@ -105,58 +122,148 @@ def linearize_assemble_plain(R_flat, t, points, uv0, uv1, w, cam_of_slot):
     return _split(cam_red, lm_red, W)
 
 
-def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot):
+class CameraIndex(NamedTuple):
+    """Camera-major index of the live slots of one (K, L) slot grid, made by
+    ``camera_index``. It holds the grid it indexes: ``linearize_assemble``
+    takes it only with those very w and cam_of_slot tensors, unmodified."""
+    slots: torch.Tensor      # (n_seg, SEGMENT) int32 slot ids k L + l, -1 pads
+    seg_cam: torch.Tensor    # (n_seg,) int32 camera of each segment
+    seg_start: torch.Tensor  # (C + 1,) int32: camera c's segments are
+    #                          [seg_start[c], seg_start[c + 1])
+    grid: tuple              # (w, cam_of_slot, their _version when built)
+
+
+def camera_index(w, cam_of_slot, n_cams):
+    """The live slots (w > 0) of a (K, L) slot grid as slot ids n = k L + l,
+    sorted by camera, stably (so by n within a camera), each camera's run
+    cut into segments of SEGMENT slots and its last segment padded with -1:
+    no segment holds two cameras, and each starts with a live slot.
+    seg_cam is each segment's camera. Built with torch on the grid's device;
+    the kernel's camera pass runs a warp a segment."""
+    if (w.dim() != 2 or cam_of_slot.shape != w.shape
+            or cam_of_slot.dtype != torch.int32
+            or cam_of_slot.device != w.device or not w.is_contiguous()
+            or not cam_of_slot.is_contiguous()):
+        raise ValueError(
+            f"camera_index: w and cam_of_slot must be contiguous (K, L) "
+            f"tensors on one device, cam_of_slot int32; got {w.dtype} "
+            f"{tuple(w.shape)} on {w.device}, {cam_of_slot.dtype} "
+            f"{tuple(cam_of_slot.shape)} on {cam_of_slot.device}")
+    if w.numel() > _INT32_MAX:
+        raise ValueError(f"camera_index: {w.numel()} slots overflow int32 ids")
+    seg = SEGMENT
+    device = w.device
+    n = torch.nonzero(w.reshape(-1) > 0).squeeze(1)
+    cams, order = torch.sort(cam_of_slot.reshape(-1)[n].long(), stable=True)
+    n = n[order]
+    if cams.numel() and not 0 <= int(cams[0]) <= int(cams[-1]) < n_cams:
+        raise ValueError(f"camera_index: a live slot names a camera outside "
+                         f"[0, {n_cams})")
+    counts = torch.bincount(cams, minlength=n_cams)
+    per_cam = (counts + seg - 1) // seg
+    seg_start = torch.zeros(n_cams + 1, dtype=torch.int64, device=device)
+    seg_start[1:] = torch.cumsum(per_cam, 0)
+    rank = (torch.arange(n.shape[0], device=device)
+            - (torch.cumsum(counts, 0) - counts)[cams])
+    slots = torch.full((int(seg_start[-1]) * seg,), -1, dtype=torch.int32,
+                       device=device)
+    slots[seg_start[cams] * seg + rank] = n.to(torch.int32)
+    seg_cam = torch.repeat_interleave(
+        torch.arange(n_cams, dtype=torch.int32, device=device), per_cam)
+    return CameraIndex(slots.view(-1, seg), seg_cam, seg_start.to(torch.int32),
+                       (w, cam_of_slot, (w._version, cam_of_slot._version)))
+
+
+def layout_index(w, cam_of_slot, n_cams):
+    """What a layout builder keeps for the kernel: the grid's
+    ``camera_index`` on a CUDA device, None on the CPU, where
+    ``linearize_assemble`` runs the plain version, which reads none."""
+    return None if w.device.type == "cpu" else camera_index(w, cam_of_slot,
+                                                           n_cams)
+
+
+def _check_index(index, w, cam_of_slot, n_cams):
+    gw, gcam, versions = index.grid
+    if (gw is not w or gcam is not cam_of_slot
+            or versions != (w._version, cam_of_slot._version)
+            or index.seg_start.shape[0] != n_cams + 1):
+        raise ValueError("ba_assemble: cam_index was not built by "
+                         "camera_index from these w and cam_of_slot tensors "
+                         "and this camera count, or they changed since")
+
+
+def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index):
+    """The kernel on CUDA tensors; index is checked against w and
+    cam_of_slot, which camera_index checked with it."""
     global LAUNCHES
     dtype, device = points.dtype, points.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ba_assemble kernel takes float32/float64, not {dtype}")
     C = R_flat.shape[0]
     K, L = w.shape
-    shapes = {"R_flat": (C, 9), "t": (C, 3), "points": (L, 3), "uv0": (K, L),
-              "uv1": (K, L), "w": (K, L), "cam_of_slot": (K, L)}
-    args = {"R_flat": R_flat, "t": t, "points": points, "uv0": uv0,
-            "uv1": uv1, "w": w, "cam_of_slot": cam_of_slot}
-    for name, a in args.items():
-        want = torch.int32 if name == "cam_of_slot" else dtype
-        if (a.device != device or a.dtype != want
-                or tuple(a.shape) != shapes[name] or not a.is_contiguous()):
-            raise ValueError(
-                f"ba_assemble: {name} must be a contiguous {want} tensor of "
-                f"shape {shapes[name]} on {device}; got {a.dtype} "
-                f"{tuple(a.shape)} on {a.device}")
     if C < 1 or K < 1 or L < 1:
         raise ValueError(f"ba_assemble: empty problem C={C} K={K} L={L}")
-    smem = C * 12 * points.element_size()      # the camera rows (R, t)
-    if smem > _build.SMEM_PER_BLOCK:
-        raise ValueError(
-            f"ba_assemble: C={C} cameras need {smem} B of shared memory, "
-            f"more than a block's {_build.SMEM_PER_BLOCK} B")
+    for name, a, shape in (("R_flat", R_flat, (C, 9)), ("t", t, (C, 3)),
+                           ("points", points, (L, 3)), ("uv0", uv0, (K, L)),
+                           ("uv1", uv1, (K, L)), ("w", w, (K, L))):
+        if (a.dtype != dtype or a.device != device or a.shape != shape
+                or not a.is_contiguous()):
+            raise ValueError(
+                f"ba_assemble: {name} must be a contiguous {dtype} tensor of "
+                f"shape {shape} on {device}; got {a.dtype} "
+                f"{tuple(a.shape)} on {a.device}")
+    n_seg = index.slots.shape[0]
     lib = _build.library()
-    cam_red = torch.zeros((C, 28), dtype=dtype, device=device)
-    lm_red = torch.empty((9, L), dtype=dtype, device=device)
-    W = torch.empty((18, K, L), dtype=dtype, device=device)
+    # one allocation for the outputs and the scratch (the camera pass's
+    # partials (n_seg, 28), each camera's cost (C,), the camera sums' count
+    # of finished blocks), each output a contiguous view of it, and the
+    # device switched in C: the host's time a call is most of the kernel's
+    # at the headline shapes. The cost has its own, since callers keep it
+    # longer than the blocks.
+    o_gp = 21 * C
+    o_hll = o_gp + 6 * C
+    o_gl = o_hll + 6 * L
+    o_w = o_gl + 3 * L
+    o_scratch = o_w + 18 * K * L
+    buf = torch.empty(o_scratch + 28 * n_seg + C + 1, dtype=dtype,
+                      device=device)
+    Hpp = buf.as_strided((C, 21), (21, 1), 0)
+    gp = buf.as_strided((C, 6), (6, 1), o_gp)
+    Hll = buf.as_strided((6, L), (L, 1), o_hll)
+    gl = buf.as_strided((3, L), (L, 1), o_gl)
+    W = buf.as_strided((18, K, L), (K * L, L, 1), o_w)
+    cost = torch.empty((), dtype=dtype, device=device)
     fn = lib.ba_assemble_f32 if dtype == torch.float32 else lib.ba_assemble_f64
-    with torch.cuda.device(device):
-        rc = fn(R_flat.data_ptr(), t.data_ptr(), points.data_ptr(),
-                uv0.data_ptr(), uv1.data_ptr(), w.data_ptr(),
-                cam_of_slot.data_ptr(), C, K, L, cam_red.data_ptr(),
-                lm_red.data_ptr(), W.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+    rc = fn(R_flat.data_ptr(), t.data_ptr(), points.data_ptr(),
+            uv0.data_ptr(), uv1.data_ptr(), w.data_ptr(),
+            cam_of_slot.data_ptr(), index.slots.data_ptr(),
+            index.seg_cam.data_ptr(), index.seg_start.data_ptr(), n_seg, C, K,
+            L, Hpp.data_ptr(), gp.data_ptr(), Hll.data_ptr(), gl.data_ptr(),
+            W.data_ptr(), cost.data_ptr(),
+            buf.data_ptr() + o_scratch * buf.element_size(), device.index,
+            torch.cuda.current_stream(device).cuda_stream)
     _build.check(rc, "ba_assemble")
     LAUNCHES += 1
-    return _split(cam_red, lm_red, W)
+    return Hpp, gp, Hll, gl, W, cost
 
 
-def linearize_assemble(R_flat, t, points, uv0, uv1, w, cam_of_slot):
+def linearize_assemble(R_flat, t, points, uv0, uv1, w, cam_of_slot,
+                       cam_index=None):
     """Linearize + assemble: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
     R_flat (C, 9), t (C, 3), points (L, 3); uv0, uv1, w (K, L); cam_of_slot
-    (K, L) int32. Returns (Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L),
+    (K, L) int32; cam_index the ``camera_index`` of this w and cam_of_slot
+    (the kernel builds it when it is None; the plain version does not use
+    it). Returns (Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L),
     W (18, K, L), cost ())."""
+    if cam_index is not None:
+        _check_index(cam_index, w, cam_of_slot, R_flat.shape[0])
     if points.device.type == "cpu":
         return linearize_assemble_plain(R_flat, t, points, uv0, uv1, w,
                                         cam_of_slot)
     if points.device.type != "cuda":
         raise ValueError(f"ba_assemble: no kernel for device {points.device}")
-    return _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot)
+    if cam_index is None:
+        cam_index = camera_index(w, cam_of_slot, R_flat.shape[0])
+    return _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, cam_index)

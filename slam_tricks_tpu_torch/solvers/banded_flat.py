@@ -25,12 +25,13 @@ The math is the JAX package's. Where the JAX code multiplies by the
 keeps each chunk's c0 as an integer and gathers and adds at c0 + k.
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from slam_tricks_tpu_torch.ops.ba_assemble import linearize_assemble
+from slam_tricks_tpu_torch.ops.ba_assemble import (CameraIndex, layout_index,
+                                                   linearize_assemble)
 from slam_tricks_tpu_torch.ops.tridiag_solve import tridiag_solve
 from slam_tricks_tpu_torch.solvers.common import set_full_precision
 from slam_tricks_tpu_torch.solvers.schur import lm_loop
@@ -48,6 +49,7 @@ class BandedWork(NamedTuple):
     uv1: torch.Tensor          # (K, Lpad) measured v
     w: torch.Tensor            # (K, Lpad) weights, 0 = no observation
     cam_of_slot: torch.Tensor  # (K, Lpad) int32, (c0 + k) mod C
+    cam_index: Optional[CameraIndex]  # the kernel's sums; None on the CPU
     c0: torch.Tensor           # (Lpad / chunk,) int64 first camera of a chunk
     scatter_idx: torch.Tensor  # (Lpad,) int64 landmark id, n_points = padding
     gather_idx: torch.Tensor   # (Lpad,) int64 scatter_idx clipped to [0, L)
@@ -121,9 +123,11 @@ def build_banded_work(obs, n_cams, n_points, dtype=torch.float32, chunk=32,
     def tensor(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
+    w_t, cam_t = tensor(wg), tensor(cam_of_slot.astype(np.int32))
     return BandedWork(
-        uv0=tensor(uvg[:, 0]), uv1=tensor(uvg[:, 1]), w=tensor(wg),
-        cam_of_slot=tensor(cam_of_slot.astype(np.int32)), c0=tensor(chunk_c0),
+        uv0=tensor(uvg[:, 0]), uv1=tensor(uvg[:, 1]), w=w_t,
+        cam_of_slot=cam_t, cam_index=layout_index(w_t, cam_t, C),
+        c0=tensor(chunk_c0),
         scatter_idx=tensor(scatter_idx),
         gather_idx=tensor(np.minimum(scatter_idx, L - 1)),
         n_cams=C, n_points=L)
@@ -135,7 +139,7 @@ def _banded_quantities(poses, points_s, bw: BandedWork):
     C = bw.n_cams
     Hpp, gp, Hll, gl, W, cost = linearize_assemble(
         poses.R.reshape(C, 9), poses.t, points_s, bw.uv0, bw.uv1, bw.w,
-        bw.cam_of_slot)
+        bw.cam_of_slot, bw.cam_index)
     return (Hpp, gp, Hll, gl, W), cost
 
 

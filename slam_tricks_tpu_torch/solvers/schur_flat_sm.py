@@ -20,12 +20,14 @@ gathers and uses ``index_add_``. The one-hot products are exact, so the
 results are the same.
 """
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from slam_tricks_tpu_torch.ops.ba_assemble import _IJ3, _IJ6, linearize_assemble
+from slam_tricks_tpu_torch.ops.ba_assemble import (_IJ3, _IJ6, CameraIndex,
+                                                   layout_index,
+                                                   linearize_assemble)
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
 from slam_tricks_tpu_torch.solvers.common import set_full_precision
 from slam_tricks_tpu_torch.solvers.schur import build_track_table, lm_loop
@@ -42,6 +44,7 @@ class SlotWork(NamedTuple):
     w: torch.Tensor             # (K, L) weights (0 = padding slot)
     mask: torch.Tensor          # (K, L) 1/0
     cam_of_slot: torch.Tensor   # (K, L) int32, camera 0 on padding slots
+    cam_index: Optional[CameraIndex]  # the kernel's sums; None on the CPU
     n_cams: int
 
     @property
@@ -72,12 +75,15 @@ def build_slot_work(obs, n_cams, n_points, dtype=torch.float32):
                                device=device)               # (K, L, ...)
 
     uv_sm = slotm(uv_np.astype(np_dtype))
+    w_sm = slotm(w_np.astype(np_dtype))
+    cam_sm = slotm(cam_np.astype(np.int32))
     return SlotWork(
         uv0=uv_sm[..., 0].contiguous(), uv1=uv_sm[..., 1].contiguous(),
-        w=slotm(w_np.astype(np_dtype)),
+        w=w_sm,
         mask=torch.as_tensor(np.ascontiguousarray(msk.T.astype(np_dtype)),
                              device=device),
-        cam_of_slot=slotm(cam_np.astype(np.int32)), n_cams=int(n_cams))
+        cam_of_slot=cam_sm, cam_index=layout_index(w_sm, cam_sm, n_cams),
+        n_cams=int(n_cams))
 
 
 def _quantities_sm(poses, points, work: SlotWork):
@@ -86,7 +92,7 @@ def _quantities_sm(poses, points, work: SlotWork):
     C = work.n_cams
     Hpp, gp, Hll, gl, W, cost = linearize_assemble(
         poses.R.reshape(C, 9), poses.t, points, work.uv0, work.uv1, work.w,
-        work.cam_of_slot)
+        work.cam_of_slot, work.cam_index)
     return (Hpp, gp, Hll, gl, W), cost
 
 

@@ -7,9 +7,10 @@ so it also runs on a GPU machine that has none:
         tests/test_torch_cuda.py
 
 Every test skips without a CUDA device. Tolerances, as max |a - b| / max |b|:
-ba_assemble 1e-4 in f32 (float atomics sum in a run-dependent order) and
-1e-10 in f64; spd_solve 5e-6 in f32 and 1e-9 in f64 on well-conditioned
-SPD systems (two Cholesky solves, tiles against cuSOLVER's blocking);
+ba_assemble 1e-4 in f32 and 1e-10 in f64 (its sums run in a fixed order,
+another than the plain version's index_add_; two launches agree bitwise);
+spd_solve 5e-6 in f32 and 1e-9 in f64 on well-conditioned SPD systems
+(two Cholesky solves, tiles against cuSOLVER's blocking);
 tridiag_solve 1e-4 in f32 and 1e-9 in f64 on well-conditioned systems (the
 same cyclic reduction, sums in another order);
 undistort 2.5e-4 px in f32 (a few ulp at 700 px; the compiler fuses
@@ -53,21 +54,89 @@ def _problem(dtype, device):
     return poses0, points0, fixed, work
 
 
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
-                                        (torch.float64, 1e-10)])
-def test_ba_assemble_kernel_matches_plain(dtype, tol):
-    dev = require_cuda()
-    poses0, points0, _, work = _problem(dtype, dev)
+_ASSEMBLE_OUT = ("Hpp", "gp", "Hll", "gl", "W", "cost")
+
+
+def _assemble_args(layout, dtype, device):
+    """(kernel arguments, camera index) of the headline layout ("A", 16
+    cameras) or of a 64-camera trajectory layout ("B", track_len 8, chunks
+    of 32 landmarks that share their first camera)."""
+    if layout == "A":
+        poses0, points0, _, work = _problem(dtype, device)
+    else:
+        sc = make_trajectory_scene(n_cams=64, n_points=3000, track_len=8,
+                                   seed=5, dtype=dtype, device=device)
+        poses0, points0, _ = perturb_scene(sc, pose_rot_noise=0.002,
+                                           pose_trans_noise=0.01,
+                                           point_noise=0.01, seed=6)
+        work = banded_flat.build_banded_work(sc.obs, sc.n_cams, sc.n_points,
+                                             dtype=dtype)
+        points0 = points0[work.gather_idx]
     args = (poses0.R.reshape(work.n_cams, 9), poses0.t, points0, work.uv0,
             work.uv1, work.w, work.cam_of_slot)
+    return args, work.cam_index
+
+
+@pytest.mark.parametrize("layout", ["A", "B"])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
+                                        (torch.float64, 1e-10)])
+def test_ba_assemble_kernel_matches_plain(dtype, tol, layout):
+    dev = require_cuda()
+    args, index = _assemble_args(layout, dtype, dev)
     ref = ba_assemble.linearize_assemble_plain(*args)
-    before = ba_assemble.LAUNCHES
+    for cam_index in (index, None):     # the layout's index, the wrapper's
+        before = ba_assemble.LAUNCHES
+        out = ba_assemble.linearize_assemble(*args, cam_index)
+        torch.cuda.synchronize()
+        assert ba_assemble.LAUNCHES == before + 1
+        for name, a, b in zip(_ASSEMBLE_OUT, out, ref):
+            assert a.shape == b.shape and a.device == b.device, name
+            assert rel_err(a, b) < tol, (name, rel_err(a, b))
+
+
+@pytest.mark.parametrize("layout", ["A", "B"])
+def test_ba_assemble_kernel_is_deterministic(layout):
+    """No float atomics: two launches on the same inputs, f32, give the
+    same bits in every output."""
+    dev = require_cuda()
+    args, index = _assemble_args(layout, torch.float32, dev)
+    one = ba_assemble.linearize_assemble(*args, index)
+    two = ba_assemble.linearize_assemble(*args, index)
+    for name, a, b in zip(_ASSEMBLE_OUT, one, two):
+        assert torch.equal(a, b), name
+
+
+def test_ba_assemble_kernel_many_cameras():
+    """C = 6000 cameras, more than the rows (R, t) a block's shared memory
+    held when the kernel staged them (~4,800 in f32): a random slot grid,
+    K = 8, L = 4000, 80% of the slots live, points in front of cameras
+    near the identity."""
+    dev = require_cuda()
+    C, K, L = 6000, 8, 4000
+    rng = np.random.default_rng(6000)
+    ang = rng.normal(scale=0.05, size=(C, 3))
+    Kx = np.zeros((C, 3, 3))
+    Kx[:, 0, 1], Kx[:, 0, 2], Kx[:, 1, 2] = -ang[:, 2], ang[:, 1], -ang[:, 0]
+    Kx = Kx - Kx.transpose(0, 2, 1)
+    R = np.eye(3)[None] + Kx + 0.5 * Kx @ Kx        # near-rotations
+    t = rng.normal(scale=0.1, size=(C, 3))
+    points = np.c_[rng.uniform(-1, 1, (L, 2)), rng.uniform(4, 6, L)]
+    live = rng.random((K, L)) < 0.8
+    w = np.where(live, rng.uniform(0.5, 2.0, (K, L)), 0.0)
+    cam = np.where(live, rng.integers(0, C, (K, L)), 0).astype(np.int32)
+    uv = rng.normal(scale=0.2, size=(2, K, L))
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    args = (f32(R.reshape(C, 9)), f32(t), f32(points), f32(uv[0]), f32(uv[1]),
+            f32(w), torch.as_tensor(cam, device=dev))
+    ref = ba_assemble.linearize_assemble_plain(*args)
     out = ba_assemble.linearize_assemble(*args)
     torch.cuda.synchronize()
-    assert ba_assemble.LAUNCHES == before + 1
-    for name, a, b in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"), out, ref):
-        assert a.shape == b.shape and a.device == b.device, name
-        assert rel_err(a, b) < tol, (name, rel_err(a, b))
+    for name, a, b in zip(_ASSEMBLE_OUT, out, ref):
+        assert rel_err(a, b) < 1e-4, (name, rel_err(a, b))
 
 
 def _spd_system(n, dtype, device):
