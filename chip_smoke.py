@@ -15,7 +15,10 @@ with every launch count set to 0 just before it:
 - B, the large-C trajectory bundle adjustment (1024 cameras, 200,000
   landmarks, tracks of 8, 1,600,000 observations, 12 LM iterations, float32,
   TF32 off), whose reduced camera system is block-tridiagonal;
-- E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps;
+- E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
+  (before it, the undistort kernel against plain at its edges: a pointer
+  8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
+  float64);
 
 and checks what each returns. Prints one line per phase, then a JSON line
 with each kernel's launches, error, times (CUDA events, median of rounds:
@@ -50,6 +53,7 @@ FINAL_COST_MAX = 0.05       # both known basins (~1e-10, ~2.5e-2) are below
 B_FINAL_COST_MAX = 1e-4     # path B starts at ~1e2 (102.4 on the card)
 SMALL_POSE_TOL = 1e-8       # f64 small-scene poses, card vs CPU
 UNDISTORT_TOL = 2.5e-4      # px, kernel vs plain, f32 (a few ulp at 700 px)
+UNDISTORT_F64_TOL = 1e-9    # px, kernel vs plain, f64
 ROUND_TRIP_TOL = 1e-3       # px, |undistort(distort(px)) - px|, f32
 
 # peaks of one H100 SXM (NVIDIA's data sheet): the bound of each kernel,
@@ -520,12 +524,40 @@ def main():
     final_b_cost = c[-1]
     del args_b, tpoints_s
 
-    # ---- 12. path E: undistortion of 8,388,608 pixels ----
-    npx = 8_388_608         # bench.py:stage_undistort
+    # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
                              1.76187114e-05)
     params = tuple(intr) + tuple(dist)
+    rng_e = np.random.default_rng(5)
+    for label, n_e, dtype_e, offset, iters_e, tol in (
+            ("pointer 8 mod 16 bytes", 3001, f32, 1, 5, UNDISTORT_TOL),
+            ("odd n below one block", 101, f32, 0, 5, UNDISTORT_TOL),
+            ("odd n below one block, pointer 8 mod 16", 1, f32, 1, 5,
+             UNDISTORT_TOL),
+            ("n = 0", 0, f32, 0, 5, UNDISTORT_TOL),
+            ("0 Newton steps", 3001, f32, 0, 0, UNDISTORT_TOL),
+            ("1 Newton step", 3001, f32, 0, 1, UNDISTORT_TOL),
+            ("8 Newton steps", 3001, f32, 0, 8, UNDISTORT_TOL),
+            ("float64", 3001, f64, 1, 5, UNDISTORT_F64_TOL)):
+        buf = torch.as_tensor(rng_e.uniform([50, 50], [700, 430],
+                                            (n_e + 1, 2)),
+                              dtype=dtype_e, device=dev)
+        x_e = buf[offset:offset + n_e]
+        out_k = undistort.undistort(x_e, params, iters_e)
+        out_p = undistort.undistort_plain(x_e, params, iters_e)
+        torch.cuda.synchronize()
+        err_e = float((out_k - out_p).abs().max()) if n_e else 0.0
+        _log("undistort", f"{label}: n={n_e} {dtype_e} {iters_e} steps, "
+                          f"pointer {x_e.data_ptr() % 16} mod 16: max "
+                          f"|kernel - plain| {err_e:.3e} px (bound {tol})")
+        if (out_k.shape != (n_e, 2) or out_k.dtype != dtype_e
+                or not err_e <= tol):
+            raise AssertionError(f"undistort {label}: error {err_e} px, "
+                                 f"shape {tuple(out_k.shape)}")
+
+    # ---- 13. path E: undistortion of 8,388,608 pixels ----
+    npx = 8_388_608         # bench.py:stage_undistort
     px = torch.as_tensor(np.random.default_rng(3).uniform(
         [50, 50], [700, 430], (npx, 2)), dtype=f32, device=dev)
     dist_px = camera.distort_pixels(intr, dist, px).contiguous()
@@ -556,7 +588,7 @@ def main():
     _log("path E", f"kernel {k4_ms:.4f} ms a call ({npx / k4_ms * 1e3:.4e}"
                    f" px/s), {k4_device_ms:.4f} ms on the card alone, "
                    f"plain torch {k4_plain_ms:.4f} ms, bound {k4_bound:.4f} "
-                   f"ms ({k4_by})")
+                   f"ms ({k4_by}): bound / card {k4_bound / k4_device_ms:.3f}")
 
     kernels = [
         {"name": "ba_assemble", "route": "cuda",
@@ -597,7 +629,7 @@ def main():
          "replaces": "slam_tricks_tpu/ops/pallas_undistort.py:23",
          "launches": launches_e["undistort"], "max_abs_err": k4_abs,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "device_ms": k4_device_ms,
-         "bound_ms": k4_bound,
+         "bound_ms": k4_bound, "bound_share": k4_bound / k4_device_ms,
          "bound_by": k4_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels,

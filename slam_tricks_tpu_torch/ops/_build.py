@@ -41,9 +41,9 @@ _TRI = [_P] * 7 + [_I, _I, _P]
 
 
 def _undistort(scalar):
-    """undistort: px, out, n, fx, fy, cx, cy, k1, k2, k3, p1, p2, iters,
-    stream"""
-    return [_P, _P, _I] + [scalar] * 9 + [_I, _P]
+    """undistort: px, out, n (64-bit), fx, fy, cx, cy, k1, k2, k3, p1, p2,
+    iters, device, stream"""
+    return [_P, _P, ctypes.c_int64] + [scalar] * 9 + [_I, _I, _P]
 
 
 SIGNATURES = {

@@ -6,11 +6,11 @@ undistorted ones (N, 2); params are the 9 numbers
 ``csrc/undistort.cu`` for CUDA tensors and the plain torch version
 ``undistort_plain`` for CPU tensors. The kernel replaces
 ``slam_tricks_tpu/ops/pallas_undistort.py::_undistort_kernel`` (called by
-``undistort_points_pallas``): one thread a pixel, all Newton steps in
-registers, no padding. It takes float32 and float64.
+``undistort_points_pallas``): 16-byte vectors of pixels a thread, every
+Newton step in registers as fused multiply-adds, no padding, a 64-bit count.
+It takes float32 and float64, a contiguous (N, 2) tensor aligned to a pixel;
+``residuals/camera.undistort_points_fast`` hands it one.
 """
-
-import ctypes
 
 import torch
 
@@ -59,21 +59,19 @@ def _launch(px, params, iters):
             or px.data_ptr() % (2 * px.element_size())):
         raise ValueError(f"undistort: px must be a contiguous (N, 2) tensor "
                          f"aligned to a pixel; got {tuple(px.shape)}")
-    if len(params) != 9 or iters < 0:
-        raise ValueError("undistort: 9 camera parameters and iters >= 0")
+    if len(params) != 9 or not 0 <= iters < 2 ** 31:
+        raise ValueError("undistort: 9 camera parameters and 0 <= iters < "
+                         "2**31")
     n = px.shape[0]
     out = torch.empty_like(px)
     if n == 0:
         return out
     lib = _build.library()
-    if dtype == torch.float32:
-        fn, scalar = lib.undistort_f32, ctypes.c_float
-    else:
-        fn, scalar = lib.undistort_f64, ctypes.c_double
-    with torch.cuda.device(px.device):
-        rc = fn(px.data_ptr(), out.data_ptr(), n,
-                *(scalar(float(v)) for v in params), int(iters),
-                torch.cuda.current_stream().cuda_stream)
+    fn = lib.undistort_f32 if dtype == torch.float32 else lib.undistort_f64
+    # n crosses as a 64-bit integer; the device is switched in C
+    rc = fn(px.data_ptr(), out.data_ptr(), n, *(float(v) for v in params),
+            int(iters), px.device.index,
+            torch.cuda.current_stream(px.device).cuda_stream)
     _build.check(rc, "undistort")
     LAUNCHES += 1
     return out

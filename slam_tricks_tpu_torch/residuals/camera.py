@@ -90,7 +90,13 @@ def distort_pixels(intr, dist, px):
 def undistort_points_fast(intr, dist, px_dist, iters=5):
     """Newton undistortion with the analytic 2x2 Jacobian and its
     closed-form inverse: distorted pixels (N, 2) -> (N, 2). The CUDA kernel
-    on a CUDA tensor, its plain torch version on a CPU tensor."""
+    on a CUDA tensor, its plain torch version on a CPU tensor. Any (N, 2)
+    view goes: the kernel gets a contiguous copy of one that is not
+    contiguous or not aligned to a pixel (such as ``pts[:, :2]``)."""
     params = (intr.fx, intr.fy, intr.cx, intr.cy,
               dist.k1, dist.k2, dist.k3, dist.p1, dist.p2)
+    if px_dist.device.type == "cuda" and (
+            not px_dist.is_contiguous()
+            or px_dist.data_ptr() % (2 * px_dist.element_size())):
+        px_dist = px_dist.clone(memory_format=torch.contiguous_format)
     return _undistort.undistort(px_dist, params, iters)

@@ -13,9 +13,9 @@ spd_solve 5e-6 in f32 and 1e-9 in f64 on well-conditioned SPD systems
 (two Cholesky solves, tiles against cuSOLVER's blocking);
 tridiag_solve 1e-4 in f32 and 1e-9 in f64 on well-conditioned systems (the
 same cyclic reduction, sums in another order);
-undistort 2.5e-4 px in f32 (a few ulp at 700 px; the compiler fuses
-multiply-adds) and 1e-9 px in f64; the f64 solves to 1e-8 in the poses,
-as against JAX."""
+undistort 2.5e-4 px in f32 (a few ulp at 700 px: the kernel's steps are
+fused multiply-adds with an approximate reciprocal of the determinant) and
+1e-9 px in f64; the f64 solves to 1e-8 in the poses, as against JAX."""
 
 import numpy as np
 import pytest
@@ -273,21 +273,82 @@ def test_tridiag_kernel_refuses_too_large_blocks():
         tridiag_solve.tridiag_solve(D, E, r)
 
 
-@pytest.mark.parametrize("n, dtype, tol", [(3001, torch.float32, 2.5e-4),
-                                           (500, torch.float64, 1e-9)])
-def test_undistort_kernel_matches_plain(n, dtype, tol):
+_UNDISTORT_PARAMS = (458.654, 457.296, 367.215, 248.375, -0.28340811,
+                     0.07395907, 0.0, 0.00019359, 1.76187114e-05)
+
+
+# offset 1 starts the pixels 8 mod 16 bytes into a buffer (f32: a head pixel
+# before the first 16-byte vector, and an output of another phase than the
+# input); 3001, 101 and 1 are odd counts (a tail pixel), 101 and 1 below one
+# block; n = 0 launches nothing
+@pytest.mark.parametrize("n, dtype, tol, offset, iters", [
+    (3001, torch.float32, 2.5e-4, 0, 5), (500, torch.float64, 1e-9, 0, 5),
+    (3001, torch.float32, 2.5e-4, 1, 5), (101, torch.float32, 2.5e-4, 1, 5),
+    (1, torch.float32, 2.5e-4, 1, 5), (101, torch.float32, 2.5e-4, 0, 5),
+    (0, torch.float32, 2.5e-4, 0, 5), (3001, torch.float32, 2.5e-4, 0, 0),
+    (3001, torch.float32, 2.5e-4, 0, 1), (3001, torch.float32, 2.5e-4, 0, 8),
+    (501, torch.float64, 1e-9, 1, 8), (501, torch.float64, 1e-9, 0, 1)])
+def test_undistort_kernel_matches_plain(n, dtype, tol, offset, iters):
     dev = require_cuda()
-    params = (458.654, 457.296, 367.215, 248.375, -0.28340811, 0.07395907,
-              0.0, 0.00019359, 1.76187114e-05)
     rng = np.random.default_rng(n)
-    px = torch.as_tensor(rng.uniform([50, 50], [700, 430], size=(n, 2)),
-                         dtype=dtype, device=dev)
-    ref = undistort.undistort_plain(px, params)
+    buf = torch.as_tensor(rng.uniform([50, 50], [700, 430], size=(n + 1, 2)),
+                          dtype=dtype, device=dev)
+    px = buf[offset:offset + n]
+    assert px.data_ptr() % 16 == offset * 2 * px.element_size() % 16
+    ref = undistort.undistort_plain(px, _UNDISTORT_PARAMS, iters)
     before = undistort.LAUNCHES
-    out = undistort.undistort(px, params)
+    out = undistort.undistort(px, _UNDISTORT_PARAMS, iters)
+    torch.cuda.synchronize()
+    assert undistort.LAUNCHES == before + (n > 0)
+    assert out.shape == (n, 2) and out.dtype == dtype
+    if n:
+        assert float((out - ref).abs().max()) < tol
+
+
+def test_undistort_points_fast_takes_a_strided_view():
+    """pts[:, :2] of an (N, 3) tensor is not contiguous: the kernel gets a
+    contiguous copy, and the result is the plain version's on the view."""
+    from slam_tricks_tpu_torch.residuals import camera
+
+    dev = require_cuda()
+    rng = np.random.default_rng(7)
+    pts = torch.as_tensor(rng.uniform([50, 50, 0], [700, 430, 1],
+                                      size=(2001, 3)),
+                          dtype=torch.float32, device=dev)
+    view = pts[:, :2]
+    assert not view.is_contiguous()
+    intr = camera.Intrinsics(*_UNDISTORT_PARAMS[:4])
+    dist = camera.DistCoeffs(*_UNDISTORT_PARAMS[4:])
+    before = undistort.LAUNCHES
+    out = camera.undistort_points_fast(intr, dist, view)
     torch.cuda.synchronize()
     assert undistort.LAUNCHES == before + 1
-    assert float((out - ref).abs().max()) < tol
+    ref = undistort.undistort_plain(view, _UNDISTORT_PARAMS)
+    assert float((out - ref).abs().max()) < 2.5e-4
+    cpu = camera.undistort_points_fast(intr, dist, view.cpu())
+    assert float((out.cpu() - cpu).abs().max()) < 2.5e-4
+
+
+def test_undistort_kernel_count_above_int32():
+    """n = 2**31 + 5 f32 pixels (17 GB each way): the count crosses ctypes
+    and the kernel in 64 bits, and every pixel, the last included, matches
+    the plain version (taken in chunks)."""
+    dev = require_cuda()
+    torch.cuda.empty_cache()
+    n = 2 ** 31 + 5
+    gen = torch.Generator(device=dev).manual_seed(0)
+    px = torch.empty((n, 2), device=dev)
+    px[:, 0].uniform_(50, 700, generator=gen)
+    px[:, 1].uniform_(50, 430, generator=gen)
+    out = undistort.undistort(px, _UNDISTORT_PARAMS)
+    err = 0.0
+    chunk = 2 ** 26
+    for s in range(0, n, chunk):
+        ref = undistort.undistort_plain(px[s:s + chunk], _UNDISTORT_PARAMS)
+        err = max(err, float((out[s:s + chunk] - ref).abs().max()))
+    del px, out, ref
+    torch.cuda.empty_cache()
+    assert err < 2.5e-4
 
 
 def _banded_problem(device, n_cams=32, track_len=6, seed=71):
