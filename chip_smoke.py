@@ -5,16 +5,28 @@
 From the root of a checkout: builds the CUDA kernels from the sources in
 slam_tricks_tpu_torch/csrc, holds each against its plain torch version at the
 shapes of the paths that run it (and tridiag_solve also at the widest band's
-(16, 192), its global-tile instance), holds two launches of ba_assemble
-against each other bitwise, checks small solves through the kernels against
-the CPU path, then drives the port's three paths through the kernels, each
-with every launch count set to 0 just before it:
+(16, 192), its global-tile instance; ba_assemble also with each robust loss,
+huber, cauchy, tukey and the chi-square gate, at paths A's and B's shapes),
+holds two launches of ba_assemble against each other bitwise, checks that
+spd_solve returns NaN on a matrix that is not positive definite, as its
+plain version does, checks small float64 solves through the kernels against
+the CPU path (paths A, B, L and I), then drives the port's five paths
+through the kernels, each with every launch count set to 0 just before it:
 
 - A, the headline bundle adjustment (st20 cube room: 96 cameras, 2400
-  landmarks, 83,338 observations, 20 LM iterations, float32, TF32 off);
+  landmarks, 83,338 observations, 20 LM iterations, float32, TF32 off), and
+  again, which must give the same bits;
 - B, the large-C trajectory bundle adjustment (1024 cameras, 200,000
   landmarks, tracks of 8, 1,600,000 observations, 12 LM iterations, float32,
-  TF32 off), whose reduced camera system is block-tridiagonal;
+  TF32 off), whose reduced camera system is block-tridiagonal, and again,
+  which must give the same bits;
+- L, the loop-closure bundle adjustment (bench.py's loop_scale: 1024
+  cameras, 200,000 landmarks, tracks of 8, 1543 of them seen again by the
+  last 8 cameras, max_band 8, 12 LM iterations, float32): the banded
+  system's stored factor with a Woodbury correction of width 144;
+- I, the incremental smoother on path B's scene: a start on 512 cameras,
+  then 8 arrivals of 64 cameras up to 1024, 2 Gauss-Newton steps each,
+  float32;
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -26,7 +38,7 @@ with each kernel's launches, error, times (CUDA events, median of rounds:
 earlier run; `device_ms` on the card alone, its calls queued behind a head
 start of matrix products) and bound, the card's name and power limit from
 nvidia-smi, and last the JSON status line. With --profile DIR it also writes
-torch.profiler tables of paths A and B to DIR.
+torch.profiler tables of paths A, B and L to DIR.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -34,6 +46,7 @@ checkout of the repository. Imports nothing of JAX.
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,7 +63,14 @@ SPD_RANDOM_REL_TOL = 5e-6   # x vs plain x on a well-conditioned SPD matrix
 TRI_RES_FACTOR = 10.0       # tridiag residual <= this x the plain one (+ eps)
 TRI_RANDOM_REL_TOL = 1e-4   # x vs plain x on the well-conditioned system
 FINAL_COST_MAX = 0.05       # both known basins (~1e-10, ~2.5e-2) are below
-B_FINAL_COST_MAX = 1e-4     # path B starts at ~1e2 (102.4 on the card)
+B_FINAL_COST_MAX = 1e-4     # path B starts at ~1e2 (102.4 on the card); L too
+I_RMS_MAX = 1e-4            # path I's RMS reprojection error at its end,
+#                             normalized units (0.05 px at f = 458): the
+#                             stream freezes the prefix and takes 2 steps an
+#                             arrival, so its cost stays above the batch
+#                             optimum's (as the JAX package's stream does)
+LOOP_STRUCTURE = (1543, 23, 144)   # loop landmarks, support cameras, width
+#                                    (bench.py:1087-1093's counts, JAX run)
 SMALL_POSE_TOL = 1e-8       # f64 small-scene poses, card vs CPU
 UNDISTORT_TOL = 2.5e-4      # px, kernel vs plain, f32 (a few ulp at 700 px)
 UNDISTORT_F64_TOL = 1e-9    # px, kernel vs plain, f64
@@ -136,6 +156,21 @@ def _check_costs(c, max_final, label):
         raise AssertionError(f"{label}: final cost {c[-1]} >= {max_final}")
 
 
+def check_same_bits(one, two, label):
+    """Two solves of one problem must give the same bits in the final cost,
+    rotations, translations and points."""
+    import torch
+
+    for name, a, b in (("cost", one.cost, two.cost),
+                       ("rotations", one.poses.R, two.poses.R),
+                       ("translations", one.poses.t, two.poses.t),
+                       ("points", one.points, two.points)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: two runs differ in the {name}")
+    _log(label, f"a second run: the same bits in the cost ({float(two.cost)!r}"
+                f"), rotations, translations and points")
+
+
 def _profile(fn, path, label):
     """torch.profiler table (CUDA time by kernel) of one call of fn."""
     import torch
@@ -173,10 +208,12 @@ def main():
                          f"{slam_tricks_tpu_torch.__file__}, not this checkout")
     from slam_tricks_tpu_torch.ops import (_build, ba_assemble, spd_solve,
                                            tridiag_solve, undistort)
-    from slam_tricks_tpu_torch.residuals import camera
-    from slam_tricks_tpu_torch.sim import (make_scene, make_trajectory_scene,
+    from slam_tricks_tpu_torch.residuals import camera, robust
+    from slam_tricks_tpu_torch.sim import (make_loop_scene, make_scene,
+                                           make_trajectory_scene,
                                            perturb_scene)
-    from slam_tricks_tpu_torch.solvers import banded_flat, schur_flat_sm
+    from slam_tricks_tpu_torch.solvers import (banded_flat, incremental,
+                                               loop_flat, schur_flat_sm)
     from slam_tricks_tpu_torch.solvers.common import set_full_precision
 
     ops = (ba_assemble, spd_solve, tridiag_solve, undistort)
@@ -202,14 +239,17 @@ def main():
                   f"{time.perf_counter() - t0:.2f} s "
                   f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process a source)")
 
-    def check_assemble(args_, index, label):
+    def check_assemble(args_, index, label, loss=None, timed=True):
         """Kernel 1 against plain on args_ (the kernel with the layout's
-        camera index), and two launches against each other bitwise; returns
-        (max |k - p|, ms, plain ms, device ms, bound ms, bound_by)."""
-        out_k = ba_assemble.linearize_assemble(*args_, index)
-        out_p = ba_assemble.linearize_assemble_plain(*args_)
-        out_k2 = ba_assemble.linearize_assemble(*args_, index)
+        camera index), and two launches against each other bitwise; with
+        `timed`, returns (max |k - p|, ms, plain ms, device ms, bound ms,
+        bound_by), else (max |k - p|,)."""
+        out_k = ba_assemble.linearize_assemble(*args_, index, loss)
+        out_p = ba_assemble.linearize_assemble_plain(*args_, loss)
+        out_k2 = ba_assemble.linearize_assemble(*args_, index, loss)
         torch.cuda.synchronize()
+        if loss is not None:
+            label = f"{label} {loss.kind}({loss.param:g})"
         err = 0.0
         for name, a, b, a2 in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
                                   out_k, out_p, out_k2):
@@ -226,13 +266,16 @@ def main():
         _log("ba_assemble", f"{label}: two launches bitwise equal in every "
                             f"output; {index.slots.shape[0]} camera-pass "
                             f"segments of {index.slots.shape[1]} slots")
+        if not timed:
+            return (err,)
         ms, plain_ms, device_ms = _paired_ms(
-            lambda: ba_assemble.linearize_assemble(*args_, index),
-            lambda: ba_assemble.linearize_assemble_plain(*args_))
+            lambda: ba_assemble.linearize_assemble(*args_, index, loss),
+            lambda: ba_assemble.linearize_assemble_plain(*args_, loss))
         live = int((args_[5] > 0).sum())
+        flops = ba_assemble.FLOPS_PER_SLOT + (
+            0 if loss is None else ba_assemble.LOSS_FLOPS_PER_SLOT)
         bound_ms, bound_by = _bound(
-            _nbytes(*args_, *out_k[:4]) + _nbytes(out_k[4]),
-            live * ba_assemble.FLOPS_PER_SLOT)
+            _nbytes(*args_, *out_k[:4]) + _nbytes(out_k[4]), live * flops)
         _log("ba_assemble", f"{label}: kernel {ms:.4f} ms a call "
                             f"({device_ms:.4f} ms on the card alone); plain "
                             f"torch {plain_ms:.4f} ms, bound {bound_ms:.4f} "
@@ -251,6 +294,36 @@ def main():
               work.w, work.cam_of_slot)
     k1_keys = ("err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")
     k1 = dict(zip(k1_keys, check_assemble(args_a, work.cam_index, "path A")))
+
+    def losses(args_):
+        """The four robust losses. The chi-square gate is a step in the
+        weight, so a slot whose squared residual s lies within rounding of
+        its threshold adds itself in one version and not in the other (in
+        f32, the kernel's fused multiply-adds move s by ~1e-5 relative):
+        the threshold goes in the lowest gap wider than 1e-3 relative
+        between two live slots' s in the upper 1%."""
+        (r0, r1), *_ = ba_assemble._linearize_sm(*args_)
+        live = args_[5] > 0
+        s_ = torch.sort(((r0 * r0 + r1 * r1)[live]
+                         / args_[5][live]).double()).values
+        top = s_[int(0.99 * s_.numel()):]
+        wide = torch.nonzero(top[1:] / top[:-1] > 1.001)
+        if not wide.numel():
+            raise AssertionError("no gap wider than 1e-3 for the gate")
+        i = int(wide[0])
+        thr = float(torch.sqrt(top[i] * top[i + 1]))
+        _log("ba_assemble", f"gate threshold {thr:.6e}: s of the live slots "
+                            f"next to it {float(top[i]):.6e} and "
+                            f"{float(top[i + 1]):.6e}; gates "
+                            f"{int((s_ > thr).sum())} of {s_.numel()}")
+        return (robust.huber(1.0), robust.cauchy(1.0), robust.tukey(4.685),
+                robust.chi2_gate(thr))
+
+    # ---- 3b. kernel 1 with each robust loss, at path A's shapes ----
+    loss_err = 0.0
+    for loss in losses(args_a):
+        loss_err = max(loss_err, check_assemble(args_a, work.cam_index,
+                                                "path A", loss, False)[0])
 
     # ---- 4. kernel 2: SPD solve of the first step's S (n = 6C) ----
     out_p = ba_assemble.linearize_assemble_plain(*args_a)
@@ -289,6 +362,24 @@ def main():
                       f"ms on the card alone); plain torch (cholesky_ex + "
                       f"cholesky_solve) {k2_plain_ms:.4f} ms, library "
                       f"{k2_lib_ms:.4f} ms, bound {k2_bound:.5f} ms ({k2_by})")
+
+    # ---- 4b. kernel 2 on a matrix that is not positive definite ----
+    n = S.shape[0]
+    for label, i in (("a negative pivot in the first tile", 7),
+                     ("a negative last pivot", n - 1)):
+        S_bad = S.clone()
+        S_bad[i, i] = -S_bad[i, i].abs()
+        x_k = spd_solve.spd_solve(S_bad, b)
+        x_p = spd_solve.spd_solve_plain(S_bad, b)
+        torch.cuda.synchronize()
+        nan_k, nan_p = torch.isnan(x_k), torch.isnan(x_p)
+        _log("spd_solve", f"not positive definite, {label} (row {i}): NaN in "
+                          f"{int(nan_k.sum())} of {n} kernel values, "
+                          f"{int(nan_p.sum())} plain")
+        if not (nan_p.all() and torch.equal(nan_k, nan_p)):
+            raise AssertionError(f"spd_solve {label}: the kernel's NaN "
+                                 f"{int(nan_k.sum())} != plain's "
+                                 f"{int(nan_p.sum())} of {n}")
 
     # ---- 5. reference: a small f64 scene through the kernels vs the CPU ----
     small = dict(n_per_wall=60, n_cams=16, seed=3, dtype=f64)
@@ -339,6 +430,7 @@ def main():
             or not torch.isfinite(final.points).all()
             or not torch.isfinite(final.poses.R).all()):
         raise AssertionError("path A returned malformed or non-finite state")
+    check_same_bits(final, solve_a(20), "path A")
     if args.profile is not None:
         _profile(lambda: solve_a(5), args.profile / "path_a.txt",
                  "path A, 5 LM iterations")
@@ -367,6 +459,12 @@ def main():
     args_b = (tposes0.R.reshape(CB, 9), tposes0.t, tpoints_s, bw.uv0, bw.uv1,
               bw.w, bw.cam_of_slot)
     k1b = dict(zip(k1_keys, check_assemble(args_b, bw.cam_index, "path B")))
+    for loss in losses(args_b):
+        got = check_assemble(args_b, bw.cam_index, "path B", loss,
+                             loss.kind == "tukey")
+        loss_err = max(loss_err, got[0])
+        if loss.kind == "tukey":
+            k1_loss = dict(zip(k1_keys, got))
 
     # ---- 9. kernel 3: block-tridiagonal solve ----
     Gt, mt = 128, 48        # the system of bench.py:stage_tridiag_ab
@@ -518,11 +616,201 @@ def main():
             or not torch.isfinite(final.points).all()
             or not torch.isfinite(final.poses.R).all()):
         raise AssertionError("path B returned malformed or non-finite state")
+    check_same_bits(final, solve_b(12), "path B")
     if args.profile is not None:
         _profile(lambda: solve_b(3), args.profile / "path_b.txt",
                  "path B, 3 LM iterations")
     final_b_cost = c[-1]
     del args_b, tpoints_s
+
+    # ---- 11b. reference: small f64 loop and stream solves, card vs CPU ----
+    results = []
+    for device in ("cpu", dev):
+        sc = make_loop_scene(n_cams=16, n_points=200, track_len=3, seed=31,
+                             pix_noise=1e-3, dtype=f64, device=device)
+        p0, x0, fx = perturb_scene(sc, pose_rot_noise=0.002,
+                                   pose_trans_noise=0.01, point_noise=0.01,
+                                   seed=32)
+        lw_ = loop_flat.build_loop_work(sc.obs, sc.n_cams, sc.n_points,
+                                        dtype=f64, max_band=3)
+        results.append(loop_flat.solve_ba_loop(p0, x0, lw_, fixed_mask=fx,
+                                               max_iters=6))
+    ref, got = results
+    perr = float((got.poses.t.cpu() - ref.poses.t).abs().max())
+    _log("reference L", f"16 cameras f64, loop closures: card {got.it} "
+                        f"iterations cost {float(got.cost):.6e}, CPU {ref.it} "
+                        f"iterations cost {float(ref.cost):.6e}; max pose "
+                        f"diff {perr:.3e}")
+    if got.it != ref.it or not perr <= SMALL_POSE_TOL:
+        raise AssertionError("card and CPU loop-closure solves differ")
+    results = []
+    for device in ("cpu", dev):
+        sc = make_trajectory_scene(n_cams=32, n_points=480, track_len=4,
+                                   seed=11, pix_noise=1e-3, dtype=f64,
+                                   device=device)
+        p0, x0, _ = perturb_scene(sc, pose_rot_noise=0.002,
+                                  pose_trans_noise=0.01, point_noise=0.01,
+                                  seed=12)
+        wk = banded_flat.build_banded_work(sc.obs, sc.n_cams, sc.n_points,
+                                           dtype=f64)
+        fx = torch.zeros(32, dtype=torch.bool, device=device)
+        fx[[0, 15]] = True
+        st, cd = incremental.smoother_init(p0, x0, wk, n_active=16,
+                                           fixed_mask=fx)
+        for a_prev in (16, 20, 24, 28):
+            st, cd = incremental.smoother_arrive(
+                st, wk, a_prev=a_prev, a_new=a_prev + 4, c_dirty=cd,
+                fixed_mask=fx, gn_steps=2)
+        results.append(st)
+    ref, got = results
+    perr = float((got.poses.t.cpu() - ref.poses.t).abs().max())
+    _log("reference I", f"32 cameras f64, stream 16..32 by 4: card cost "
+                        f"{float(got.cost):.6e}, CPU cost "
+                        f"{float(ref.cost):.6e}; max pose diff {perr:.3e}")
+    if not perr <= SMALL_POSE_TOL:
+        raise AssertionError("card and CPU streams differ")
+
+    # ---- 11c. path L: the loop-closure solve through the kernels ----
+    t0 = time.perf_counter()
+    lscene = make_loop_scene(n_cams=1024, n_points=200_000, track_len=8,
+                             seed=21, dtype=f32, device=dev)
+    lposes0, lpoints0, lfixed = perturb_scene(
+        lscene, pose_rot_noise=0.002, pose_trans_noise=0.01, point_noise=0.01,
+        seed=22)
+    lw = loop_flat.build_loop_work(lscene.obs, lscene.n_cams, lscene.n_points,
+                                   dtype=f32, max_band=8)
+    torch.cuda.synchronize()
+    setup_l_s = time.perf_counter() - t0
+    n_lc = int((lw.lc_w.sum(0) > 0).sum())
+    support = int(lw.onehot_A.sum())
+    width = min(3 * lw.lc_w.shape[1], 6 * lw.onehot_A.shape[0])
+    _log("scene L", f"C={lscene.n_cams} L={lscene.n_points} live "
+                    f"observations={int((lscene.obs.weight > 0).sum())}; "
+                    f"{n_lc} loop-closure landmarks, {support} support "
+                    f"cameras, Woodbury width {width}; set-up {setup_l_s:.2f} s")
+    if (n_lc, support, width) != LOOP_STRUCTURE:
+        raise AssertionError(f"path L structure {(n_lc, support, width)} != "
+                             f"{LOOP_STRUCTURE}")
+    lbw = lw.banded
+    args_l = (lposes0.R.reshape(lbw.n_cams, 9), lposes0.t,
+              lpoints0[lbw.gather_idx], lbw.uv0, lbw.uv1, lbw.w,
+              lbw.cam_of_slot)
+    k1l = dict(zip(k1_keys, check_assemble(args_l, lbw.cam_index,
+                                           "path L single-run grid")))
+    del args_l
+    solve_l = lambda iters, costs=None: loop_flat.solve_ba_loop(  # noqa: E731
+        lposes0, lpoints0, lw, fixed_mask=lfixed, max_iters=iters, costs=costs)
+    solve_l(2)      # warm-up
+    torch.cuda.synchronize()
+    _reset_counts(*ops)
+    costs = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    final = solve_l(12, costs)
+    end.record()
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches_l = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in ops}
+    ms_per_iter_l = start.elapsed_time(end) / max(final.it, 1)
+    c = [float(v) for v in costs]
+    _log("path L", f"{final.it} LM iterations, cost {c[0]:.6e} -> {c[-1]:.6e};"
+                   f" launches {launches_l}; {ms_per_iter_l:.4f} ms per LM "
+                   f"iteration (CUDA events; host wall {wall_s:.3f} s)")
+    _log("path L", "costs " + " ".join(f"{v:.4e}" for v in c))
+    if launches_l["ba_assemble"] != final.it + 1:
+        raise AssertionError(f"path L: {launches_l['ba_assemble']} ba_assemble"
+                             f" launches for {final.it} iterations")
+    _check_costs(c, B_FINAL_COST_MAX, "path L")
+    if (final.poses.R.shape != (lscene.n_cams, 3, 3)
+            or final.points.shape != (lscene.n_points, 3)
+            or not torch.isfinite(final.points).all()
+            or not torch.isfinite(final.poses.R).all()):
+        raise AssertionError("path L returned malformed or non-finite state")
+    if args.profile is not None:
+        _profile(lambda: solve_l(3), args.profile / "path_l.txt",
+                 "path L, 3 LM iterations")
+    final_l_cost = c[-1]
+
+    # the plain torch stored-factor loop at path L's system (G = 128)
+    (Hpp_l, _, Hll_l, _, W_l), _ = banded_flat._banded_quantities(
+        lposes0, lpoints0[lbw.gather_idx], lbw)
+    bands_l, *_ = banded_flat._assemble_bands(Hpp_l, Hll_l, W_l, lam, lfixed,
+                                              lbw)
+    Dl, El, _ = banded_flat._group_superblocks(bands_l, lbw.n_cams)
+    del Hpp_l, Hll_l, W_l, bands_l
+    fac_l = banded_flat.block_tridiag_factor(Dl, El)
+    Rl = torch.randn(Dl.shape[0], Dl.shape[1], 1 + width, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    stored_ms = {
+        "G": Dl.shape[0], "m": Dl.shape[1], "q": 1 + width,
+        "factor_ms": _time_ms(lambda: banded_flat.block_tridiag_factor(Dl, El),
+                              reps=3),
+        "forward_ms": _time_ms(lambda: banded_flat.tridiag_forward(fac_l, Rl),
+                               reps=3),
+        "backward_ms": _time_ms(
+            lambda: banded_flat.tridiag_backward(fac_l, Rl), reps=3)}
+    _log("path L", f"plain torch stored factor at (G, m) = "
+                   f"({stored_ms['G']}, {stored_ms['m']}): factor "
+                   f"{stored_ms['factor_ms']:.3f} ms, forward and backward of "
+                   f"{1 + width} columns {stored_ms['forward_ms']:.3f} and "
+                   f"{stored_ms['backward_ms']:.3f} ms")
+    del lscene, lw, lbw, fac_l, Rl, Dl, El
+
+    # ---- 11d. path I: the incremental smoother on path B's scene ----
+    n_start, n_step, gn_steps = 512, 64, 2
+    _reset_counts(*ops)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, c_dirty = incremental.smoother_init(
+        tposes0, tpoints0, bw, fixed_mask=tfixed, n_active=n_start)
+    end.record()
+    end.synchronize()
+    init_ms = start.elapsed_time(end)
+    init_iters = tridiag_solve.LAUNCHES
+    stream_costs = [float(state.cost)]
+    arrival_ms = []
+    for a_prev in range(n_start, CB, n_step):
+        start.record()
+        state, c_dirty = incremental.smoother_arrive(
+            state, bw, a_prev=a_prev, a_new=a_prev + n_step, c_dirty=c_dirty,
+            fixed_mask=tfixed, gn_steps=gn_steps)
+        end.record()
+        end.synchronize()
+        arrival_ms.append(start.elapsed_time(end))
+        stream_costs.append(float(state.cost))
+    launches_i = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in ops}
+    n_arrivals = len(arrival_ms)
+    ms_per_arrival_i = statistics.median(arrival_ms)
+    _log("path I", f"start on {n_start} cameras ({init_iters} LM iterations, "
+                   f"{init_ms:.2f} ms), {n_arrivals} arrivals of {n_step} "
+                   f"to {CB}, {gn_steps} Gauss-Newton steps each: launches "
+                   f"{launches_i}; ms per arrival (CUDA events) "
+                   + " ".join(f"{v:.2f}" for v in arrival_ms))
+    _log("path I", "costs " + " ".join(f"{v:.4e}" for v in stream_costs))
+    # the start solve's iterations (one tridiag_solve each, one ba_assemble
+    # each and one at its start), the stored factor's linearization, and a
+    # step and four backtracking costs a Gauss-Newton step
+    want = init_iters + 2 + n_arrivals * gn_steps * 5
+    if (n_arrivals != 8 or not 1 <= init_iters <= 20
+            or launches_i["ba_assemble"] != want):
+        raise AssertionError(f"path I: launches {launches_i}, want "
+                             f"ba_assemble {want}")
+    if not all(v == v and abs(v) != float("inf") for v in stream_costs):
+        raise AssertionError(f"path I: non-finite cost: {stream_costs}")
+    rms_i = math.sqrt(2.0 * stream_costs[-1] / n_obs_b)
+    _log("path I", f"final cost {stream_costs[-1]:.6e} over {n_obs_b} "
+                   f"observations: RMS reprojection error {rms_i:.3e} "
+                   f"(bound {I_RMS_MAX})")
+    if not rms_i < I_RMS_MAX:
+        raise AssertionError(f"path I: RMS error {rms_i} >= {I_RMS_MAX}")
+    if (not torch.isfinite(state.poses.t).all()
+            or not torch.isfinite(state.points_s).all()):
+        raise AssertionError("path I returned non-finite state")
+    final_i_cost = stream_costs[-1]
+    del state
 
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
@@ -594,10 +882,14 @@ def main():
         {"name": "ba_assemble", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/ba_assemble.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_ba.py:47",
-         "launches": launches_a["ba_assemble"] + launches_b["ba_assemble"],
+         "launches": sum(n["ba_assemble"] for n in (launches_a, launches_b,
+                                                     launches_l, launches_i)),
          "launches_by_path": {"A": launches_a["ba_assemble"],
-                              "B": launches_b["ba_assemble"]},
-         "max_abs_err": max(k1["err"], k1b["err"]),
+                              "B": launches_b["ba_assemble"],
+                              "L": launches_l["ba_assemble"],
+                              "I": launches_i["ba_assemble"]},
+         "max_abs_err": max(k1["err"], k1b["err"], k1l["err"]),
+         "loss_max_abs_err": loss_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "device_ms": k1["device_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -606,7 +898,14 @@ def main():
                       "B": bw.cam_index.slots.shape[0]},
          "path_b": {"ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
                     "device_ms": k1b["device_ms"],
-                    "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"]}},
+                    "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"]},
+         "path_l": {"ms": k1l["ms"], "plain_ms": k1l["plain_ms"],
+                    "device_ms": k1l["device_ms"],
+                    "bound_ms": k1l["bound_ms"], "bound_by": k1l["bound_by"]},
+         "path_b_tukey": {"ms": k1_loss["ms"], "plain_ms": k1_loss["plain_ms"],
+                          "device_ms": k1_loss["device_ms"],
+                          "bound_ms": k1_loss["bound_ms"],
+                          "bound_by": k1_loss["bound_by"]}},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
@@ -617,7 +916,10 @@ def main():
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",
-         "launches": launches_b["tridiag_solve"], "max_abs_err": k3_abs,
+         "launches": launches_b["tridiag_solve"] + launches_i["tridiag_solve"],
+         "launches_by_path": {"B": launches_b["tridiag_solve"],
+                              "I": launches_i["tridiag_solve"]},
+         "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "device_ms": k3_device_ms,
          "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
@@ -635,8 +937,13 @@ def main():
     print(json.dumps({"kernels": kernels,
                       "ms_per_lm_iter": ms_per_iter_a,
                       "ms_per_lm_iter_b": ms_per_iter_b,
+                      "ms_per_lm_iter_l": ms_per_iter_l,
+                      "ms_per_arrival_i": ms_per_arrival_i,
+                      "stored_factor": stored_ms,
                       "final_cost": final_a_cost,
                       "final_cost_b": final_b_cost,
+                      "final_cost_l": final_l_cost,
+                      "final_cost_i": final_i_cost,
                       "undistort_px_per_s": npx / k4_ms * 1e3}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,22 @@ imports torch and numpy only, never jax.
 
 The paths ported so far: A, the headline bundle adjustment
 (``solvers.schur_flat_sm``); B, the large-C trajectory bundle adjustment
-(``solvers.banded_flat``); E, the st1 undistortion
+(``solvers.banded_flat``); L, the same with loop closures
+(``solvers.loop_flat``); I, the incremental smoother on B's layout
+(``solvers.incremental``); E, the st1 undistortion
 (``residuals.camera.undistort_points_fast``).
 
 - ``manifolds``  SO(3) and SE(3), batched over a leading dimension
-- ``sim``        the st20 cube-room and trajectory scenes (numpy core, torch
-                 tensors out, on the card unless ``device="cpu"``)
-- ``solvers``    ``schur_flat_sm.solve_ba_flat_sm`` and
-                 ``banded_flat.solve_ba_banded`` (LM with Schur elimination)
-- ``residuals``  ``camera``: pinhole intrinsics, radial-tangential distortion
+- ``sim``        the st20 cube-room, trajectory and loop-closure scenes
+                 (numpy core, torch tensors out, on the card unless
+                 ``device="cpu"``)
+- ``solvers``    ``schur_flat_sm.solve_ba_flat_sm``,
+                 ``banded_flat.solve_ba_banded`` (with the stored
+                 block-tridiagonal factor and the banded covariances),
+                 ``loop_flat.solve_ba_loop`` (LM with Schur elimination) and
+                 ``incremental.smoother_init`` / ``smoother_arrive``
+- ``residuals``  ``camera``: pinhole intrinsics, radial-tangential
+                 distortion; ``robust``: the robust losses of ``loss=``
 - ``ops``        the hand-written CUDA kernels and their plain torch versions:
                  ``ba_assemble`` (linearize + assemble), ``spd_solve``
                  (reduced camera system), ``tridiag_solve`` (block-tridiagonal

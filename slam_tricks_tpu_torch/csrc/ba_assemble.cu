@@ -10,6 +10,11 @@
 // The inputs are slot-major: element n = k*L + l is slot k of landmark l.
 // Padding slots have weight 0: every column is zero there, which the kernel
 // writes without computing it.
+// A robust loss (residuals/robust.py, passed as its code, parameter p and
+// p^2) takes the IRLS form of _linearize_sm: with s = |d|^2, each slot's
+// rows are scaled by sqrt(w weight(s)) and its cost is 0.5 w rho(s). A live
+// slot that the loss gives weight 0 (Tukey, the chi-square gate) stays in
+// the camera index and adds exact zeros.
 //
 // What bounds it on the H100: the bytes of W (18 values a slot, written
 // once: 124 MB at the 1024-camera trajectory scene) and the camera-side
@@ -60,6 +65,52 @@ __device__ __forceinline__ T dot2(T a0, T a1, T b0, T b1) {
   return a0 * b0 + a1 * b1;
 }
 
+// residuals/robust.py's KINDS
+enum LossKind { kTrivial = 0, kHuber = 1, kCauchy = 2, kTukey = 3, kGate = 4 };
+
+template <typename T>
+struct Loss {
+  int kind;
+  T p;    // huber's delta, cauchy's and tukey's c, the gate's threshold
+  T p2;   // p^2, rounded from double
+};
+
+// weight(s) = rho'(s) and rho(s) of robust.py, branch-free
+template <typename T>
+__device__ __forceinline__ void robust(const Loss<T>& loss, T s, T* weight,
+                                       T* rho) {
+  const bool in = s <= loss.p2;
+  switch (loss.kind) {
+    case kHuber: {
+      const T r = sqrt(in ? loss.p2 : s);
+      *weight = in ? T(1) : loss.p / r;
+      *rho = in ? s : T(2) * loss.p * r - loss.p2;
+      break;
+    }
+    case kCauchy: {
+      const T q = s / loss.p2;
+      *weight = T(1) / (T(1) + q);
+      *rho = loss.p2 * log1p(q);
+      break;
+    }
+    case kTukey: {
+      const T q = T(1) - s / loss.p2;
+      *weight = in ? q * q : T(0);
+      *rho = loss.p2 / T(3) * (in ? T(1) - q * q * q : T(1));
+      break;
+    }
+    case kGate: {
+      const bool keep = s <= loss.p;
+      *weight = keep ? T(1) : T(0);
+      *rho = keep ? s : loss.p;
+      break;
+    }
+    default:
+      *weight = T(1);
+      *rho = s;
+  }
+}
+
 // R row-major (9) | t (3) of camera c, through the read-only cache
 template <typename T>
 __device__ __forceinline__ void load_camera(const T* __restrict__ R_flat,
@@ -82,7 +133,8 @@ struct SlotLin {
 
 template <typename T>
 __device__ __forceinline__ SlotLin<T> linearize(const T (&r)[12], T px, T py,
-                                                T pz, T wk, T obs_u, T obs_v) {
+                                                T pz, T wk, T obs_u, T obs_v,
+                                                const Loss<T>& loss) {
   SlotLin<T> o;
   const T x = r[0] * px + r[1] * py + r[2] * pz + r[9];
   const T y = r[3] * px + r[4] * py + r[5] * pz + r[10];
@@ -92,8 +144,17 @@ __device__ __forceinline__ SlotLin<T> linearize(const T (&r)[12], T px, T py,
   const T v = y * iz;
   const T d0 = u - obs_u;
   const T d1 = v - obs_v;
-  const T sw = sqrt(wk);
-  o.cost = T(0.5) * wk * (d0 * d0 + d1 * d1);
+  const T s = d0 * d0 + d1 * d1;
+  T sw;
+  if (loss.kind == kTrivial) {
+    sw = sqrt(wk);
+    o.cost = T(0.5) * wk * s;
+  } else {
+    T weight, rho;
+    robust(loss, s, &weight, &rho);
+    sw = sqrt(wk * weight);
+    o.cost = T(0.5) * wk * rho;
+  }
   o.r0 = d0 * sw;
   o.r1 = d1 * sw;
   const T sziz = sw * iz;
@@ -124,7 +185,7 @@ __global__ void __launch_bounds__(kLanes * kMaxGroups)
 landmark_pass(const T* __restrict__ R_flat, const T* __restrict__ t,
               const T* __restrict__ points, const T* __restrict__ uv0,
               const T* __restrict__ uv1, const T* __restrict__ w,
-              const int* __restrict__ cam, int K, int L,
+              const int* __restrict__ cam, int K, int L, Loss<T> loss,
               T* __restrict__ Hll, T* __restrict__ gl, T* __restrict__ W,
               unsigned* __restrict__ sums_done) {
   __shared__ T part[kMaxGroups][kLmCols][kLanes];
@@ -151,7 +212,7 @@ landmark_pass(const T* __restrict__ R_flat, const T* __restrict__ t,
       }
       T r[12];
       load_camera(R_flat, t, cam[n], r);
-      const SlotLin<T> o = linearize(r, px, py, pz, wk, uv0[n], uv1[n]);
+      const SlotLin<T> o = linearize(r, px, py, pz, wk, uv0[n], uv1[n], loss);
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
 #pragma unroll
@@ -219,15 +280,15 @@ __device__ __forceinline__ T warp_column_sums(T (&v)[32]) {
 template <typename T>
 __device__ __forceinline__ void add_camera_columns(
     const T (&r)[12], const T* __restrict__ points, const T* __restrict__ uv0,
-    const T* __restrict__ uv1, const T* __restrict__ w, int L, int first,
-    int id, T (&v)[32]) {
+    const T* __restrict__ uv1, const T* __restrict__ w, int L,
+    const Loss<T>& loss, int first, int id, T (&v)[32]) {
   const int n = id < 0 ? first : id;
   const int l = n % L;
   const T px = __ldg(points + static_cast<size_t>(l) * 3 + 0);
   const T py = __ldg(points + static_cast<size_t>(l) * 3 + 1);
   const T pz = __ldg(points + static_cast<size_t>(l) * 3 + 2);
   const T wk = id < 0 ? T(0) : w[n];
-  const SlotLin<T> o = linearize(r, px, py, pz, wk, uv0[n], uv1[n]);
+  const SlotLin<T> o = linearize(r, px, py, pz, wk, uv0[n], uv1[n], loss);
   int q = 0;
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
@@ -248,7 +309,7 @@ __global__ void __launch_bounds__(kLanes * kSegWarps)
 camera_pass(const T* __restrict__ R_flat, const T* __restrict__ t,
             const T* __restrict__ points, const T* __restrict__ uv0,
             const T* __restrict__ uv1, const T* __restrict__ w,
-            int L, const int* __restrict__ slots,
+            int L, Loss<T> loss, const int* __restrict__ slots,
             const int* __restrict__ seg_cam, int n_seg,
             T* __restrict__ partial) {
   const int lane = threadIdx.x & (kLanes - 1);
@@ -267,8 +328,8 @@ camera_pass(const T* __restrict__ R_flat, const T* __restrict__ t,
   // with weight 0, which adds exact zeros
   const int ida = seg_slots[lane];
   const int idb = seg_slots[lane + kLanes];
-  add_camera_columns(r, points, uv0, uv1, w, L, first, ida, v);
-  add_camera_columns(r, points, uv0, uv1, w, L, first, idb, v);
+  add_camera_columns(r, points, uv0, uv1, w, L, loss, first, ida, v);
+  add_camera_columns(r, points, uv0, uv1, w, L, loss, first, idb, v);
   const T total = warp_column_sums(v);
   if (lane < kCamCols) partial[static_cast<size_t>(s) * kCamCols + lane] = total;
 }
@@ -324,7 +385,7 @@ int launch(const void* R_flat_, const void* t_, const void* points_,
            const void* uv0_, const void* uv1_, const void* w_,
            const void* cam_, const void* slots_, const void* seg_cam_,
            const void* seg_start_,
-           int n_seg, int C, int K, int L, void* Hpp, void* gp,
+           int n_seg, int C, int K, int L, Loss<T> loss, void* Hpp, void* gp,
            void* Hll, void* gl, void* W, void* cost, void* scratch,
            void* stream_) {
   const T* R_flat = static_cast<const T*>(R_flat_);
@@ -342,13 +403,13 @@ int launch(const void* R_flat_, const void* t_, const void* points_,
   const int groups = K < kMaxGroups ? K : kMaxGroups;
   landmark_pass<T><<<(L + kLanes - 1) / kLanes, dim3(kLanes, groups), 0,
                      stream>>>(R_flat, t, points, uv0, uv1, w, cam, K, L,
-                               static_cast<T*>(Hll), static_cast<T*>(gl),
+                               loss, static_cast<T*>(Hll), static_cast<T*>(gl),
                                static_cast<T*>(W), sums_done);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_seg > 0) {
     camera_pass<T><<<(n_seg + kSegWarps - 1) / kSegWarps, kLanes * kSegWarps,
-                     0, stream>>>(R_flat, t, points, uv0, uv1, w, L,
+                     0, stream>>>(R_flat, t, points, uv0, uv1, w, L, loss,
                                   static_cast<const int*>(slots_),
                                   static_cast<const int*>(seg_cam_), n_seg,
                                   partial);
@@ -370,15 +431,18 @@ int launch_on(int device, const void* R_flat, const void* t,
               const void* points, const void* uv0, const void* uv1,
               const void* w, const void* cam, const void* slots,
               const void* seg_cam, const void* seg_start, int n_seg, int C,
-              int K, int L, void* Hpp, void* gp, void* Hll, void* gl, void* W,
-              void* cost, void* scratch, void* stream) {
+              int K, int L, int loss_kind, double loss_p, double loss_p2,
+              void* Hpp, void* gp, void* Hll, void* gl, void* W, void* cost,
+              void* scratch, void* stream) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const Loss<T> loss{loss_kind, static_cast<T>(loss_p),
+                     static_cast<T>(loss_p2)};
   const int rc = launch<T>(R_flat, t, points, uv0, uv1, w, cam, slots,
-                           seg_cam, seg_start, n_seg, C, K, L, Hpp, gp, Hll,
-                           gl, W, cost, scratch, stream);
+                           seg_cam, seg_start, n_seg, C, K, L, loss, Hpp, gp,
+                           Hll, gl, W, cost, scratch, stream);
   if (prev != device) {
     err = cudaSetDevice(prev);
     if (rc == 0 && err != cudaSuccess) return static_cast<int>(err);
@@ -393,13 +457,15 @@ extern "C" int ba_assemble_f32(const void* R_flat, const void* t,
                                const void* uv1, const void* w, const void* cam,
                                const void* slots, const void* seg_cam,
                                const void* seg_start,
-                               int n_seg, int C, int K, int L,
-                               void* Hpp, void* gp, void* Hll, void* gl,
-                               void* W, void* cost, void* scratch, int device,
+                               int n_seg, int C, int K, int L, int loss_kind,
+                               double loss_p, double loss_p2, void* Hpp,
+                               void* gp, void* Hll, void* gl, void* W,
+                               void* cost, void* scratch, int device,
                                void* stream) {
   return launch_on<float>(device, R_flat, t, points, uv0, uv1, w, cam, slots,
-                          seg_cam, seg_start, n_seg, C, K, L, Hpp, gp, Hll,
-                          gl, W, cost, scratch, stream);
+                          seg_cam, seg_start, n_seg, C, K, L, loss_kind,
+                          loss_p, loss_p2, Hpp, gp, Hll, gl, W, cost, scratch,
+                          stream);
 }
 
 extern "C" int ba_assemble_f64(const void* R_flat, const void* t,
@@ -407,11 +473,13 @@ extern "C" int ba_assemble_f64(const void* R_flat, const void* t,
                                const void* uv1, const void* w, const void* cam,
                                const void* slots, const void* seg_cam,
                                const void* seg_start,
-                               int n_seg, int C, int K, int L,
-                               void* Hpp, void* gp, void* Hll, void* gl,
-                               void* W, void* cost, void* scratch, int device,
+                               int n_seg, int C, int K, int L, int loss_kind,
+                               double loss_p, double loss_p2, void* Hpp,
+                               void* gp, void* Hll, void* gl, void* W,
+                               void* cost, void* scratch, int device,
                                void* stream) {
   return launch_on<double>(device, R_flat, t, points, uv0, uv1, w, cam, slots,
-                           seg_cam, seg_start, n_seg, C, K, L, Hpp, gp, Hll,
-                           gl, W, cost, scratch, stream);
+                           seg_cam, seg_start, n_seg, C, K, L, loss_kind,
+                           loss_p, loss_p2, Hpp, gp, Hll, gl, W, cost,
+                           scratch, stream);
 }

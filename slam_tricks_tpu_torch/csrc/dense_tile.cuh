@@ -11,12 +11,6 @@
 
 namespace dense_tile {
 
-template <typename T>
-__device__ __forceinline__ T clamp_pivot(T d) {
-  // max(d, 1e-30) that keeps NaN, like jnp.maximum
-  return d < T(1e-30) ? T(1e-30) : d;
-}
-
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 

@@ -1,12 +1,15 @@
 // Dense SPD solve S x = b (the reduced camera system), for Hopper (sm_90a).
 //
 // Replaces: slam_tricks_tpu/ops/pallas_chol.py::_kernel (called by
-// chol_solve_padded / chol_solve). Same semantics: upper Cholesky
-// S = U^T U, read from the upper triangle of S, with each pivot row scaled
-// by rsqrt(max(d, 1e-30)) so that a matrix that is not positive definite
-// gives finite values rather than NaN; then U^T z = b and U x = z, the
-// backward substitution dividing by max(U_jj, 1e-30). Unlike the Pallas
-// kernel, n needs no padding.
+// chol_solve_padded / chol_solve): upper Cholesky S = U^T U, read from the
+// upper triangle of S, each pivot row scaled by 1 / sqrt(d); then
+// U^T z = b and U x = z. Unlike the Pallas kernel, which clamps pivots at
+// 1e-30, a pivot d <= 0 or not finite gives NaN (dense_tile.cuh's
+// nan_pivot_scale), as the plain version, the JAX package's default XLA
+// Cholesky and tridiag_solve.cu do: the NaN reaches every later pivot and
+// so all of x, and the solver's bad-step branch takes a zero step. The
+// NaN changes no control flow, so every block still reaches every grid
+// barrier. n needs no padding.
 //
 // What bounds it on the H100: the dependency chain, not the 64 MFLOP of
 // n = 576 (0.96 us at 67 TFLOP/s) nor the 1.3 MB of S (0.4 us at
@@ -25,8 +28,7 @@
 //     (A_ss -= U^T U of row s-1's (s-1, s) tile, A_sj likewise), and
 //     factors in shared memory: warp 0 factors the diagonal tile in
 //     registers, lane c holding column c, with shuffles and no block
-//     barrier (the clamped pivots of the Pallas rule; tridiag_solve.cu's
-//     factor, dense_tile.cuh, gives NaN instead); then a lane a column solves U_ss^T [A_sj | y_s] in
+//     barrier; then a lane a column solves U_ss^T [A_sj | y_s] in
 //     registers. Each panel block re-factors A_ss itself, which saves a
 //     barrier. The block of j = s writes z_s = U_ss^-T y_s and U_ss^-1
 //     (one warp, a lane a column); the block of j > s writes
@@ -55,15 +57,14 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using dense_tile::clamp_pivot;
 
 constexpr int kTile = 32;               // a lane a column
 constexpr int kTT = kTile * kTile;
 constexpr int kThreads = 256;           // a 16 x 16 grid in the products
 constexpr int kLd = 2 * kTile + 1;      // [A_ss | A_sj | y_s], odd stride
 
-// shared memory, in values: the panel, two factor tiles, three vectors
-constexpr size_t kSmemValues = static_cast<size_t>(kTile) * kLd + 2 * kTT + 3 * kTile;
+// shared memory, in values: the panel, two factor tiles, two vectors
+constexpr size_t kSmemValues = static_cast<size_t>(kTile) * kLd + 2 * kTT + 2 * kTile;
 
 // (i, j) of the t-th upper tile of an m x m tile triangle, row by row
 __device__ __forceinline__ void upper_tile(int t, int m, int* i, int* j) {
@@ -95,9 +96,8 @@ spd_solve_kernel(const T* __restrict__ S, const T* __restrict__ b, T* A,
   T* P = reinterpret_cast<T*>(smem_raw);   // (kTile, kLd) [A_ss | A_sj | y]
   T* Ua = P + kTile * kLd;                  // (kTile, kTile) factor tiles
   T* Ub = Ua + kTT;
-  T* sc = Ub + kTT;                         // (kTile) pivot scales
-  T* ip = sc + kTile;                       // (kTile) 1 / max(U_pp, 1e-30)
-  T* vec = ip + kTile;                      // (kTile) a vector
+  T* sc = Ub + kTT;                         // (kTile) pivot scales 1 / U_pp
+  T* vec = sc + kTile;                      // (kTile) a vector
   T* Ud = A + static_cast<size_t>(n) * n;   // (nt, kTile, kTile) U_kk^-T
   T* y = yz;        // (n) right-hand side, updated tile row by tile row
   T* z = yz + n;    // (n) U^-T b
@@ -187,7 +187,7 @@ spd_solve_kernel(const T* __restrict__ S, const T* __restrict__ b, T* A,
 #pragma unroll
         for (int p = 0; p < kTile; ++p) {
           const T d = __shfl_sync(0xffffffffu, a[p], p);
-          const T sp = dense_tile::rsqrt_t(clamp_pivot(d));
+          const T sp = dense_tile::nan_pivot_scale(d);
           const T u = a[p] * sp;   // U[p, lane]; U_pp = d s_p
           a[p] = u;
           if (lane == p) sc[p] = sp;
@@ -196,8 +196,6 @@ spd_solve_kernel(const T* __restrict__ S, const T* __restrict__ b, T* A,
         }
 #pragma unroll
         for (int r = 0; r < kTile; ++r) P[r * kLd + lane] = a[r];
-        __syncwarp();
-        ip[lane] = T(1) / clamp_pivot(P[lane * kLd + lane]);
       }
       __syncthreads();
       // U_ss^-T [A_sj | y_s]: warps 0 and 1, a lane a column
@@ -226,7 +224,7 @@ spd_solve_kernel(const T* __restrict__ S, const T* __restrict__ b, T* A,
         for (int r = 0; r < kTile; ++r) e[r] = T(r == lane ? 1 : 0);
 #pragma unroll
         for (int p = kTile - 1; p >= 0; --p) {
-          const T xp = e[p] * ip[p];
+          const T xp = e[p] * sc[p];   // 1 / U_pp = 1 / sqrt(d_p) = s_p
           e[p] = xp;
 #pragma unroll
           for (int r = 0; r < p; ++r) e[r] -= P[r * kLd + p] * xp;

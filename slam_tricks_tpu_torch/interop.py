@@ -2,6 +2,7 @@
 
 Each function takes the JAX package's objects (``se3.SE3``,
 ``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
+``loop_flat.LoopWork``,
 ``camera.Intrinsics``, ``camera.DistCoeffs``) or anything else whose
 fields numpy can read, copies every array through numpy and returns the
 port's counterpart on `device`, the card unless the caller names another
@@ -17,8 +18,9 @@ from slam_tricks_tpu_torch.manifolds.se3 import SE3
 from slam_tricks_tpu_torch.ops.ba_assemble import layout_index
 from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
-from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork
-from slam_tricks_tpu_torch.solvers.schur_flat_sm import SlotWork
+from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork, chunk_table
+from slam_tricks_tpu_torch.solvers.loop_flat import LoopWork
+from slam_tricks_tpu_torch.solvers.schur_flat_sm import SlotWork, slot_tables
 
 
 def tensor(a, device=None):
@@ -40,14 +42,16 @@ def obs_from_jax(obs, device=None):
 
 
 def slot_work_from_jax(work, device=None):
-    """The JAX SlotWork's slot grid, and on a CUDA device its camera index;
-    its camera one-hot or gather table is not carried over (the port
-    gathers with cam_of_slot)."""
+    """The JAX SlotWork's slot grid, its summation tables, and on a CUDA
+    device its camera index; its camera one-hot or gather table is not
+    carried over (the port gathers with cam_of_slot)."""
     w, cam = tensor(work.w, device), tensor(work.cam_of_slot, device)
+    mask, C = tensor(work.mask, device), int(work.n_cams)
+    b_table, cam_table = slot_tables(cam, mask, C)
     return SlotWork(uv0=tensor(work.uv0, device), uv1=tensor(work.uv1, device),
-                    w=w, mask=tensor(work.mask, device), cam_of_slot=cam,
-                    cam_index=layout_index(w, cam, int(work.n_cams)),
-                    n_cams=int(work.n_cams))
+                    w=w, mask=mask, cam_of_slot=cam,
+                    cam_index=layout_index(w, cam, C), b_table=b_table,
+                    cam_table=cam_table, n_cams=C)
 
 
 def banded_work_from_jax(work, n_points, device=None):
@@ -63,13 +67,28 @@ def banded_work_from_jax(work, n_points, device=None):
     cam_of_slot = (slot_c0[None, :] + np.arange(K)[:, None]) % C
     w = tensor(work.weight, device)
     cam = tensor(cam_of_slot.astype(np.int32), device)
+    c0_t = tensor(c0, device)
     return BandedWork(
         uv0=tensor(uv[:, 0], device), uv1=tensor(uv[:, 1], device),
         w=w, cam_of_slot=cam, cam_index=layout_index(w, cam, C),
-        c0=tensor(c0, device),
+        cam_table=chunk_table(c0_t, K, C), c0=c0_t,
         scatter_idx=tensor(np.array(work.scatter_idx).astype(np.int64), device),
         gather_idx=tensor(np.array(work.gather_idx).astype(np.int64), device),
         n_cams=C, n_points=int(n_points))
+
+
+def loop_work_from_jax(work, n_points, device=None):
+    """The JAX LoopWork: its banded part through ``banded_work_from_jax``,
+    its loop-closure grid, support rows and landmark indices."""
+    uv = np.array(work.lc_uv)                        # (Klc, 2, Mpad)
+    return LoopWork(
+        banded=banded_work_from_jax(work.banded, n_points, device),
+        lc_uv0=tensor(uv[:, 0], device), lc_uv1=tensor(uv[:, 1], device),
+        lc_w=tensor(work.lc_weight, device),
+        lc_aslot=tensor(np.array(work.lc_aslot).astype(np.int64), device),
+        lc_lm=tensor(np.array(work.lc_lm).astype(np.int64), device),
+        lc_gather=tensor(np.array(work.lc_gather).astype(np.int64), device),
+        onehot_A=tensor(work.onehot_A, device))
 
 
 def intrinsics_from_jax(intr, device=None):

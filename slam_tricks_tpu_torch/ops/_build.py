@@ -28,11 +28,11 @@ SMEM_PER_BLOCK = 232448   # bytes of shared memory a Hopper block can use
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # ba_assemble: R_flat, t, points, uv0, uv1, w, cam_of_slot, slots,
-#              seg_cam, seg_start, n_seg, C, K, L, Hpp, gp, Hll, gl, W, cost,
-#              scratch, device, stream
-_BA = [_P] * 10 + [_I] * 4 + [_P] * 7 + [_I, _P]
+#              seg_cam, seg_start, n_seg, C, K, L, loss kind, loss param,
+#              its square, Hpp, gp, Hll, gl, W, cost, scratch, device, stream
+_BA = [_P] * 10 + [_I] * 5 + [_D, _D] + [_P] * 7 + [_I, _P]
 # spd_solve: S, b, A (scratch), yz (scratch), x, flags (scratch), n, stream
 _SPD = [_P] * 6 + [_I, _P]
 # tridiag_solve: D, E, r, store, lev (scratch), work (tile scratch or NULL),

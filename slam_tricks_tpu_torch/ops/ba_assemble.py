@@ -10,6 +10,11 @@ pose and point Jacobian columns, sqrt-weighted, and reduces them to
   -> Hll (6, L), gl (3, L);
 - per slot: W = JpᵀJl -> (18, K, L), row i*3 + j.
 
+With a robust loss (``residuals/robust.Loss``) each slot's rows are
+scaled by sqrt(w · weight(‖d‖²)) and its cost is 0.5 w rho(‖d‖²), the IRLS
+form of the JAX package's ``_linearize_sm``; the kernel takes the loss as
+its kind and parameter.
+
 This is ``slam_tricks_tpu/solvers/schur_flat_sm.py::_quantities_sm`` in
 another package, and what ``slam_tricks_tpu/ops/pallas_ba.py::_kernel``
 (called by ``linearize_assemble``) computes on the TPU in an
@@ -28,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from slam_tricks_tpu_torch.ops import _build
+from slam_tricks_tpu_torch.residuals import robust
 
 LAUNCHES = 0    # kernel runs since the last reset (chip_smoke.py reads it)
 
@@ -37,6 +43,10 @@ LAUNCHES = 0    # kernel runs since the last reset (chip_smoke.py reads it)
 # kernel's camera pass computes projection, residual and Jacobians a second
 # time, which this count leaves out.
 FLOPS_PER_SLOT = 271
+# a robust loss adds, a live slot: its weight and rho of s (at most 9: the
+# Tukey polynomial), w times the weight and 0.5 w rho (3), and the cost's
+# ‖d‖² the plain count already has
+LOSS_FLOPS_PER_SLOT = 12
 
 SEGMENT = 64    # slots of a camera-pass segment: kSeg of the kernel
 _INT32_MAX = 2 ** 31 - 1
@@ -45,9 +55,10 @@ _IJ6 = [(i, j) for i in range(6) for j in range(i, 6)]     # 21 entries
 _IJ3 = [(i, j) for i in range(3) for j in range(i, 3)]     # 6 entries
 
 
-def _linearize_sm(R_flat, t, points, uv0, uv1, w, cam_of_slot):
+def _linearize_sm(R_flat, t, points, uv0, uv1, w, cam_of_slot, loss=None):
     """Slot-major residual rows, pose/point Jacobian columns and cost column,
-    each (K, L)."""
+    each (K, L); with a robust loss, rows and columns are scaled by
+    sqrt(w · weight(s)) and the cost is 0.5 w rho(s), s = ‖d‖²."""
     cam = cam_of_slot.long()
     r_ = R_flat.T[:, cam]                                   # (9, K, L)
     tn = t.T[:, cam]                                        # (3, K, L)
@@ -63,8 +74,13 @@ def _linearize_sm(R_flat, t, points, uv0, uv1, w, cam_of_slot):
     v = y * iz
     d0 = u - uv0
     d1 = v - uv1
-    sw = torch.sqrt(w)
-    cost_col = 0.5 * w * (d0 * d0 + d1 * d1)
+    if loss is None:
+        sw = torch.sqrt(w)
+        cost_col = 0.5 * w * (d0 * d0 + d1 * d1)
+    else:
+        sqn = d0 * d0 + d1 * d1
+        sw = torch.sqrt(w * loss.weight(sqn))
+        cost_col = 0.5 * w * loss.rho(sqn)
     r0 = d0 * sw
     r1 = d1 * sw
     sziz = sw * iz
@@ -102,23 +118,35 @@ def _split(cam_red, lm_red, W):
             cam_red[:, 27].sum())
 
 
-def linearize_assemble_plain(R_flat, t, points, uv0, uv1, w, cam_of_slot):
-    """Plain torch version of the kernel, on any device and dtype.
-
-    Returns (Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L), W (18, K, L),
-    cost ())."""
-    C = R_flat.shape[0]
-    K, L = w.shape
+def slot_columns(R_flat, t, points, uv0, uv1, w, cam_of_slot, loss=None):
+    """Each slot's linearization before any camera sum: (camera columns
+    (28, K, L), landmark sums (9, L), W (18, K, L)). cam_of_slot indexes
+    the rows of R_flat and t."""
     (r0, r1), (jp0, jp1), (jl0, jl1), cost_col = _linearize_sm(
-        R_flat, t, points, uv0, uv1, w, cam_of_slot)
-    stack = _camera_columns((jp0, jp1), (r0, r1), cost_col).reshape(28, K * L)
-    cam_red = torch.zeros((C, 28), dtype=points.dtype, device=points.device)
-    cam_red.index_add_(0, cam_of_slot.reshape(-1).long(), stack.T)
+        R_flat, t, points, uv0, uv1, w, cam_of_slot, loss)
+    cols = _camera_columns((jp0, jp1), (r0, r1), cost_col)
     lm_cols = [_dot2(jl0[i], jl1[i], jl0[j], jl1[j]) for (i, j) in _IJ3]
     lm_cols += [_dot2(jl0[i], jl1[i], r0, r1) for i in range(3)]
     lm_red = torch.stack([c.sum(dim=0) for c in lm_cols], dim=0)   # (9, L)
     W = torch.stack([_dot2(jp0[i], jp1[i], jl0[j], jl1[j])
                      for i in range(6) for j in range(3)], dim=0)
+    return cols, lm_red, W
+
+
+def linearize_assemble_plain(R_flat, t, points, uv0, uv1, w, cam_of_slot,
+                             loss=None):
+    """Plain torch version of the kernel, on any device and dtype; loss a
+    ``residuals.robust.Loss`` or None.
+
+    Returns (Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L), W (18, K, L),
+    cost ())."""
+    C = R_flat.shape[0]
+    K, L = w.shape
+    cols, lm_red, W = slot_columns(R_flat, t, points, uv0, uv1, w,
+                                   cam_of_slot, loss)
+    cam_red = torch.zeros((C, 28), dtype=points.dtype, device=points.device)
+    cam_red.index_add_(0, cam_of_slot.reshape(-1).long(),
+                       cols.reshape(28, K * L).T)
     return _split(cam_red, lm_red, W)
 
 
@@ -192,7 +220,7 @@ def _check_index(index, w, cam_of_slot, n_cams):
                          "and this camera count, or they changed since")
 
 
-def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index):
+def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index, loss):
     """The kernel on CUDA tensors; index is checked against w and
     cam_of_slot, which camera_index checked with it."""
     global LAUNCHES
@@ -234,11 +262,15 @@ def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index):
     W = buf.as_strided((18, K, L), (K * L, L, 1), o_w)
     cost = torch.empty((), dtype=dtype, device=device)
     fn = lib.ba_assemble_f32 if dtype == torch.float32 else lib.ba_assemble_f64
+    # the loss as (code, its parameter, the parameter squared), the square
+    # taken in double as the plain version takes it
+    kind, p = (0, 0.0) if loss is None else (robust.KINDS[loss.kind],
+                                             float(loss.param))
     rc = fn(R_flat.data_ptr(), t.data_ptr(), points.data_ptr(),
             uv0.data_ptr(), uv1.data_ptr(), w.data_ptr(),
             cam_of_slot.data_ptr(), index.slots.data_ptr(),
             index.seg_cam.data_ptr(), index.seg_start.data_ptr(), n_seg, C, K,
-            L, Hpp.data_ptr(), gp.data_ptr(), Hll.data_ptr(), gl.data_ptr(),
+            L, kind, p, p * p, Hpp.data_ptr(), gp.data_ptr(), Hll.data_ptr(), gl.data_ptr(),
             W.data_ptr(), cost.data_ptr(),
             buf.data_ptr() + o_scratch * buf.element_size(), device.index,
             torch.cuda.current_stream(device).cuda_stream)
@@ -248,22 +280,26 @@ def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index):
 
 
 def linearize_assemble(R_flat, t, points, uv0, uv1, w, cam_of_slot,
-                       cam_index=None):
+                       cam_index=None, loss=None):
     """Linearize + assemble: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
     R_flat (C, 9), t (C, 3), points (L, 3); uv0, uv1, w (K, L); cam_of_slot
     (K, L) int32; cam_index the ``camera_index`` of this w and cam_of_slot
     (the kernel builds it when it is None; the plain version does not use
-    it). Returns (Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L),
-    W (18, K, L), cost ())."""
+    it); loss a ``residuals.robust.Loss`` or None. A live slot that the
+    loss gives weight 0 stays in the index and adds exact zeros to the
+    sums (and its 0.5 w rho to the cost). Returns (Hpp (C, 21), gp (C, 6),
+    Hll (6, L), gl (3, L), W (18, K, L), cost ())."""
+    robust.check(loss)
     if cam_index is not None:
         _check_index(cam_index, w, cam_of_slot, R_flat.shape[0])
     if points.device.type == "cpu":
         return linearize_assemble_plain(R_flat, t, points, uv0, uv1, w,
-                                        cam_of_slot)
+                                        cam_of_slot, loss)
     if points.device.type != "cuda":
         raise ValueError(f"ba_assemble: no kernel for device {points.device}")
     if cam_index is None:
         cam_index = camera_index(w, cam_of_slot, R_flat.shape[0])
-    return _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, cam_index)
+    return _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, cam_index,
+                   loss)

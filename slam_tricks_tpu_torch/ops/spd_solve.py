@@ -11,11 +11,11 @@ device-memory copy of S cut into 32 x 32 tiles; n needs no padding. It
 takes float32 and float64 and any n <= ``MAX_N`` = 46340, where n² still
 fits the kernel's 32-bit element offsets; shared memory does not bound n.
 
-The two differ on a matrix that is not positive definite: the kernel, like
-the Pallas one, clamps each pivot at 1e-30 and returns finite values, while
-the plain version returns NaN (as the JAX package's XLA Cholesky does),
-which the solver's ``bad`` branch turns into a zero step. On SPD input both
-solve the same system.
+On a matrix that is not positive definite (a pivot <= 0 or not finite)
+both return NaN, as the JAX package's default XLA Cholesky and
+``tridiag_solve`` do, and the solver's ``bad`` branch turns the step into a
+zero step; the Pallas kernel clamped pivots at 1e-30 and returned finite
+values.
 """
 
 import torch

@@ -1,3 +1,3 @@
 """Camera models."""
 
-from slam_tricks_tpu_torch.residuals import camera  # noqa: F401
+from slam_tricks_tpu_torch.residuals import camera, robust  # noqa: F401

@@ -3,6 +3,7 @@
 from slam_tricks_tpu_torch.sim.ba_scene import (  # noqa: F401
     BAObservations,
     BAScene,
+    make_loop_scene,
     make_scene,
     make_trajectory_scene,
     perturb_scene,

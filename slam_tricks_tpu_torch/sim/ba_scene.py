@@ -1,6 +1,6 @@
 """Deterministic BA scenes (port of ``slam_tricks_tpu/sim/ba_scene.py``):
-the st20 cube room of the headline solve and the large-C trajectory scene
-of the banded solve.
+the st20 cube room of the headline solve, the large-C trajectory scene of
+the banded solve and the trajectory scene with loop closures.
 
 Each scene is built in numpy exactly as the JAX package builds it, so the
 observation arrays are bit-identical for the same seed; only the final
@@ -167,6 +167,72 @@ def make_trajectory_scene(n_cams=1024, n_points=200_000, track_len=8,
 
     cam_idx = (c0[:, None] + np.arange(track_len)[None, :]).reshape(-1)
     lm_idx = np.repeat(np.arange(n_points), track_len)
+    p_cam = (np.einsum("nij,nj->ni", Rs[cam_idx], pts[lm_idx])
+             + ts[cam_idx])
+    z = p_cam[:, 2]
+    valid = z > 0.5
+    uv = p_cam[:, :2] / np.where(valid, z, 1.0)[:, None]
+    if pix_noise > 0:
+        uv = uv + rng.normal(size=uv.shape) * pix_noise
+    w = valid.astype(np.float64)
+    n_valid = np.bincount(lm_idx, weights=w, minlength=n_points)
+    w = w * (n_valid[lm_idx] >= 2)
+    return _padded_scene(cam_idx, lm_idx, uv, w, Rs, ts, pts, n_cams,
+                         n_points, np_dtype, device)
+
+
+def make_loop_scene(n_cams=1024, n_points=200_000, track_len=8,
+                    loop_frac=None, radius=50.0, seed=0, pix_noise=0.0,
+                    dtype=torch.float32, device=None):
+    """The trajectory scene with loop closures: cameras on a circle as in
+    make_trajectory_scene, and every landmark anchored in the start window
+    [0, track_len) is seen again by the last `track_len` cameras, so its
+    track is two runs of consecutive cameras (the loop closing as the
+    circle completes). loop_frac: the fraction of landmarks forced into
+    the start window (None keeps the uniform anchors, ~track_len / n_cams
+    of them loop closures). Raises ValueError for n_cams < 2 track_len,
+    where the two runs would overlap. Tensors go to `device`, the card
+    unless the caller names another."""
+    if n_cams < 2 * track_len:
+        raise ValueError(
+            f"make_loop_scene needs n_cams >= 2*track_len "
+            f"(got n_cams={n_cams}, track_len={track_len}): the revisit "
+            "run would overlap the primary run")
+    np_dtype = _NP_DTYPE[dtype]
+    device = resolve(device)
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n_cams) / n_cams
+    eyes = np.stack([radius * np.cos(ang), radius * np.sin(ang),
+                     np.zeros(n_cams)], axis=1)
+    fwd = np.stack([-np.sin(ang), np.cos(ang), np.zeros(n_cams)], axis=1)
+    Rs, ts = [], []
+    for i in range(n_cams):
+        R, t = look_at(eyes[i], eyes[i] + fwd[i])
+        Rs.append(R)
+        ts.append(t)
+    Rs = np.stack(Rs)
+    ts = np.stack(ts)
+
+    c0 = rng.integers(0, n_cams - track_len + 1, size=n_points)
+    if loop_frac is not None:
+        n_loop = int(loop_frac * n_points)
+        c0[:n_loop] = rng.integers(0, track_len, size=n_loop)
+    mid = c0 + track_len // 2
+    local = np.stack([
+        rng.uniform(-1.5, 1.5, n_points),
+        rng.uniform(-1.5, 1.5, n_points),
+        rng.uniform(6.0, 14.0, n_points),
+    ], axis=1)
+    pts = np.einsum("nji,nj->ni", Rs[mid], local - ts[mid])
+
+    # the primary runs, then the revisit run of the start-window landmarks
+    cam_idx = (c0[:, None] + np.arange(track_len)[None, :]).reshape(-1)
+    lm_idx = np.repeat(np.arange(n_points), track_len)
+    loop_lms = np.flatnonzero(c0 < track_len)
+    rev_cams = np.arange(n_cams - track_len, n_cams)
+    cam_idx = np.concatenate([cam_idx, np.tile(rev_cams, loop_lms.size)])
+    lm_idx = np.concatenate([lm_idx, np.repeat(loop_lms, track_len)])
+
     p_cam = (np.einsum("nij,nj->ni", Rs[cam_idx], pts[lm_idx])
              + ts[cam_idx])
     z = p_cam[:, 2]

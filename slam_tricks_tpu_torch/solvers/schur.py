@@ -9,9 +9,6 @@ import torch
 
 from slam_tricks_tpu_torch.manifolds import se3, so3
 
-LAMBDA_INIT = 1e-4    # the JAX solvers' defaults, which every caller uses
-XTOL = 1e-12          # stop when an accepted step is shorter than this
-
 
 class BAState(NamedTuple):
     poses: se3.SE3          # stacked (C,)
@@ -72,20 +69,23 @@ def lm_accept(cost_old, cost_try, lam, nu, pred, bad):
     return accept, lam_new, nu_new
 
 
-def lm_loop(poses0, points0, quantities, solve, *, max_iters, costs=None):
+def lm_loop(poses0, points0, quantities, solve, *, max_iters,
+            lambda_init=1e-4, xtol=1e-12, costs=None):
     """The Levenberg-Marquardt loop of the JAX package's Schur solvers, run
     on the host over device tensors with one sync (the stop flag) a step.
 
-    quantities(poses, points) -> (blocks, cost), blocks = (Hpp, gp, Hll,
-    gl, W) in the solver's layout; solve(blocks, lam) -> (dp (C, 6),
-    dl (L, 3), diag_pp (C, 6), diag_ll (L, 3)). Steps retract on
-    SO(3) x R^3 (tangent [omega, dt]); the predicted reduction uses the
-    Marquardt diagonals. If `costs` is a list, the cost at the start and
-    after each step is appended to it (device scalars). Returns a BAState."""
+    quantities(poses, points) -> (blocks, cost), blocks a tuple of tensors
+    in the solver's layout that starts (Hpp, gp, Hll, gl (3, L), ...);
+    solve(blocks, lam) -> (dp (C, 6), dl (L, 3), diag_pp (C, 6),
+    diag_ll (L, 3)). Steps retract on SO(3) x R^3 (tangent [omega, dt]);
+    the predicted reduction uses the Marquardt diagonals. lambda_init is
+    the first damping; the loop stops when an accepted step is shorter
+    than xtol. If `costs` is a list, the cost at the start and after each
+    step is appended to it (device scalars). Returns a BAState."""
     dtype, device = points0.dtype, points0.device
     poses, points = poses0, points0
     blocks, cost = quantities(poses, points)
-    lam = torch.tensor(LAMBDA_INIT, dtype=dtype, device=device)
+    lam = torch.tensor(lambda_init, dtype=dtype, device=device)
     nu = torch.tensor(2.0, dtype=dtype, device=device)
     it, done = 0, False
     if costs is not None:
@@ -114,6 +114,6 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters, costs=None):
         it += 1
         if costs is not None:
             costs.append(cost)
-        done = bool(accept & (step_sq < XTOL * XTOL))   # one sync a step
+        done = bool(accept & (step_sq < xtol * xtol))   # one sync a step
     return BAState(poses=poses, points=points, cost=cost, lam=lam, nu=nu,
                    it=it, done=done)

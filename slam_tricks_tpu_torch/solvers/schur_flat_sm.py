@@ -7,17 +7,20 @@ grid: slot k of landmark l, padding slots with weight 0. One iteration:
 
 1. linearize + assemble (``ops/ba_assemble``, a CUDA kernel on the card);
 2. damp, whiten each slot by the landmark's 3x3 Cholesky factor, build the
-   whitened B (3L, 6C) with ``index_add_`` and form
-   S = Hpp + lam D - BᵀB with one full-float32 matrix product;
+   whitened B (3L, 6C) by a sum in a fixed order (``common.table_sum``) and
+   form S = Hpp + lam D - BᵀB with one full-float32 matrix product;
 3. solve the reduced camera system (``ops/spd_solve``, a CUDA kernel on the
    card) and back-substitute the landmark steps;
 4. retract on SO(3) x R^3 (tangent [omega, dt]) and accept or reject with
    the Nielsen control law.
 
-The math is the JAX package's. Its TPU layout is not: where the JAX code
-multiplies by bf16 one-hot matrices so that the TPU never gathers, the port
-gathers and uses ``index_add_``. The one-hot products are exact, so the
-results are the same.
+The math is the JAX package's, robust ``loss=`` included. Its TPU layout is
+not: where the JAX code multiplies by bf16 one-hot matrices so that the TPU
+never gathers, the port gathers, and sums over slots in an order fixed when
+the layout is built (``SlotWork.b_table``, ``cam_table``), so that the card
+returns the same bits on every run; ``index_add_`` would sum by float
+atomics there. The one-hot products are exact, so the results are the
+same.
 """
 
 from typing import NamedTuple, Optional
@@ -29,7 +32,10 @@ from slam_tricks_tpu_torch.ops.ba_assemble import (_IJ3, _IJ6, CameraIndex,
                                                    layout_index,
                                                    linearize_assemble)
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
-from slam_tricks_tpu_torch.solvers.common import set_full_precision
+from slam_tricks_tpu_torch.residuals import robust
+from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed,
+                                                  set_full_precision,
+                                                  sum_table, table_sum)
 from slam_tricks_tpu_torch.solvers.schur import build_track_table, lm_loop
 
 _DIAG6 = [k for k, (i, j) in enumerate(_IJ6) if i == j]    # [0, 6, 11, 15, 18, 20]
@@ -45,11 +51,29 @@ class SlotWork(NamedTuple):
     mask: torch.Tensor          # (K, L) 1/0
     cam_of_slot: torch.Tensor   # (K, L) int32, camera 0 on padding slots
     cam_index: Optional[CameraIndex]  # the kernel's sums; None on the CPU
+    b_table: torch.Tensor       # (L C, T) the slots of each (landmark,
+    #                             camera) block of B: ``slot_tables``
+    cam_table: torch.Tensor     # (C, T) the slots of each camera
     n_cams: int
 
     @property
     def n_points(self):
         return self.mask.shape[1]
+
+
+def slot_tables(cam_of_slot, mask, n_cams):
+    """(b_table, cam_table): the ``common.sum_table`` orders of the live
+    slots n = k L + l (mask > 0) into row l C + cam of B and into their
+    camera. b_table has one column unless a landmark has two live slots of
+    one camera; padding slots add exact zeros, so they are left out."""
+    K, L = mask.shape
+    cam = cam_of_slot.long().reshape(-1)
+    live = mask.reshape(-1) > 0
+    lm = torch.arange(L, device=cam.device).repeat(K)
+    none = torch.full_like(cam, -1)
+    return (sum_table(torch.where(live, lm * n_cams + cam, none),
+                      L * n_cams),
+            sum_table(torch.where(live, cam, none), n_cams))
 
 
 def build_slot_work(obs, n_cams, n_points, dtype=torch.float32):
@@ -77,22 +101,23 @@ def build_slot_work(obs, n_cams, n_points, dtype=torch.float32):
     uv_sm = slotm(uv_np.astype(np_dtype))
     w_sm = slotm(w_np.astype(np_dtype))
     cam_sm = slotm(cam_np.astype(np.int32))
+    mask = torch.as_tensor(np.ascontiguousarray(msk.T.astype(np_dtype)),
+                           device=device)
+    b_table, cam_table = slot_tables(cam_sm, mask, n_cams)
     return SlotWork(
         uv0=uv_sm[..., 0].contiguous(), uv1=uv_sm[..., 1].contiguous(),
-        w=w_sm,
-        mask=torch.as_tensor(np.ascontiguousarray(msk.T.astype(np_dtype)),
-                             device=device),
-        cam_of_slot=cam_sm, cam_index=layout_index(w_sm, cam_sm, n_cams),
-        n_cams=int(n_cams))
+        w=w_sm, mask=mask, cam_of_slot=cam_sm,
+        cam_index=layout_index(w_sm, cam_sm, n_cams), b_table=b_table,
+        cam_table=cam_table, n_cams=int(n_cams))
 
 
-def _quantities_sm(poses, points, work: SlotWork):
+def _quantities_sm(poses, points, work: SlotWork, loss=None):
     """Linearize + assemble: (Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L),
     W (18, K, L)), cost."""
     C = work.n_cams
     Hpp, gp, Hll, gl, W, cost = linearize_assemble(
         poses.R.reshape(C, 9), poses.t, points, work.uv0, work.uv1, work.w,
-        work.cam_of_slot, work.cam_index)
+        work.cam_of_slot, work.cam_index, loss)
     return (Hpp, gp, Hll, gl, W), cost
 
 
@@ -113,6 +138,20 @@ def _inv3x3_flat(h):
     det = a * A + b * B + c * Cc
     idet = 1.0 / det
     return [A * idet, B * idet, Cc * idet, D * idet, E * idet, F * idet]
+
+
+def damp_hll(Hll, lam):
+    """The landmark blocks' damping, Hll (6, L) -> (damped (6, L), clamped
+    diagonal (3, L)): + lam times the clamped diagonal; an empty landmark
+    (no live slot) gets the identity, since its eps-damped zero block has
+    det ~ (lam 1e-12)^3, which underflows f32 to an inf inverse."""
+    dll = torch.clamp_min(Hll[_DIAG3], 1e-12)
+    empty = (Hll[0] + Hll[3] + Hll[5]) <= 0.0
+    damp = torch.zeros_like(Hll)
+    damp[_DIAG3] = lam * dll
+    eye3 = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=Hll.dtype,
+                        device=Hll.device)[:, None]
+    return torch.where(empty, eye3, Hll + damp), dll
 
 
 def _chol3_flat(h):
@@ -138,19 +177,10 @@ def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
     dtype, device = gp.dtype, gp.device
     C, L = work.n_cams, work.n_points
     K = work.mask.shape[0]
-    cam = work.cam_of_slot.long()
 
     dpp = torch.clamp_min(Hpp[:, _DIAG6], 1e-12)                  # (C, 6)
-    dll = torch.clamp_min(Hll[_DIAG3], 1e-12)                     # (3, L)
     Hpp_d = _sym6_expand(Hpp) + torch.diag_embed(lam * dpp)
-    # an empty landmark (no live slot) gets the identity: its eps-damped zero
-    # block has det ~ (lam 1e-12)^3, which underflows f32 to an inf inverse
-    empty = (Hll[0] + Hll[3] + Hll[5]) <= 0.0
-    damp = torch.zeros_like(Hll)
-    damp[_DIAG3] = lam * dll
-    eye3 = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=dtype,
-                        device=device)[:, None]
-    Hll_d = torch.where(empty, eye3, Hll + damp)
+    Hll_d, dll = damp_hll(Hll, lam)
     Hll_inv = _inv3x3_flat(Hll_d)
 
     # whiten per slot: X = Ld^-1 Wᵀ, (18, K, L) with row r*6 + i = X[r, i]
@@ -165,9 +195,7 @@ def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
 
     # B[(l, r), (c, i)] = sum of X[r*6 + i, k, l] over the slots k of l with
     # camera c; S = Hpp_d - BᵀB
-    lc = torch.arange(L, device=device)[None, :] * C + cam        # (K, L)
-    Bl = torch.zeros((L * C, 18), dtype=dtype, device=device)
-    Bl.index_add_(0, lc.reshape(-1), X.reshape(18, K * L).T)
+    Bl = table_sum(X.reshape(18, K * L), work.b_table)           # (L C, 18)
     B = Bl.view(L, C, 3, 6).permute(0, 2, 1, 3).reshape(3 * L, 6 * C)
     S = (-(B.T @ B)).view(C, 6, C, 6)
     ci = torch.arange(C, device=device)
@@ -180,9 +208,7 @@ def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
     u2 = c_ * gl[0] + e_ * gl[1] + f_ * gl[2]
     W3 = W.view(6, 3, K, L)
     y = W3[:, 0] * (u0 * m) + W3[:, 1] * (u1 * m) + W3[:, 2] * (u2 * m)
-    y_c = torch.zeros((C, 6), dtype=dtype, device=device)
-    y_c.index_add_(0, cam.reshape(-1), y.reshape(6, K * L).T)
-    b = -(gp - y_c)
+    b = -(gp - table_sum(y.reshape(6, K * L), work.cam_table))
 
     # gauge: identity rows and columns for the fixed cameras
     free = (~fixed_mask).to(dtype)
@@ -220,23 +246,24 @@ def _solve_sm(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: SlotWork):
 
 
 def solve_ba_flat_sm(poses0, points0, work: SlotWork, *, fixed_mask=None,
-                     max_iters=30, loss=None, costs=None):
+                     max_iters=30, lambda_init=1e-4, xtol=1e-12, loss=None,
+                     costs=None):
     """LM bundle adjustment, slot-major flat layout; the same iteration
     trajectory as the JAX package's ``solve_ba_flat_sm``.
 
     poses0: SE3 with R (C, 3, 3), t (C, 3); points0 (L, 3); fixed_mask (C,)
-    bool (default: camera 0). The loop runs on the host over device tensors
-    and reads the stop flag once per iteration. If `costs` is a list, the
-    cost at the start and after each iteration is appended to it (device
-    scalars). Returns a BAState."""
-    if loss is not None:
-        raise NotImplementedError("robust loss= is not ported yet")
+    bool (default: camera 0); lambda_init the first damping; the solve
+    stops when an accepted step is shorter than xtol; loss a
+    ``residuals.robust.Loss`` or None. The loop runs on the host over
+    device tensors and reads the stop flag once per iteration. If `costs`
+    is a list, the cost at the start and after each iteration is appended
+    to it (device scalars). Returns a BAState."""
+    robust.check(loss)
     set_full_precision()
     if fixed_mask is None:
-        fixed_mask = torch.zeros(work.n_cams, dtype=torch.bool,
-                                 device=points0.device)
-        fixed_mask[0] = True
+        fixed_mask = first_camera_fixed(work.n_cams, points0.device)
     return lm_loop(
-        poses0, points0, lambda poses, points: _quantities_sm(poses, points, work),
+        poses0, points0,
+        lambda poses, points: _quantities_sm(poses, points, work, loss),
         lambda blocks, lam: _solve_sm(*blocks, lam, fixed_mask, work),
-        max_iters=max_iters, costs=costs)
+        max_iters=max_iters, lambda_init=lambda_init, xtol=xtol, costs=costs)

@@ -132,9 +132,15 @@ def test_solve_matches_jax(name):
 
 
 def test_robust_loss_not_ported():
+    """The JAX package's Loss, a pair of closures, is not ported as such:
+    the solver takes the port's Loss (a name and a parameter, which the
+    kernel can take) and refuses the JAX one, or any other object."""
+    from slam_tricks_tpu.residuals import robust as jrobust
+
     _, (p0, x0, fx, bw) = _problems("g1")
-    with pytest.raises(NotImplementedError):
-        banded_flat.solve_ba_banded(p0, x0, bw, fixed_mask=fx, loss=object())
+    for loss in (jrobust.huber(1.0), object()):
+        with pytest.raises(TypeError):
+            banded_flat.solve_ba_banded(p0, x0, bw, fixed_mask=fx, loss=loss)
 
 
 def test_rejects_wide_band():

@@ -12,10 +12,13 @@ another than the plain version's index_add_; two launches agree bitwise);
 spd_solve 5e-6 in f32 and 1e-9 in f64 on well-conditioned SPD systems
 (two Cholesky solves, tiles against cuSOLVER's blocking);
 tridiag_solve 1e-4 in f32 and 1e-9 in f64 on well-conditioned systems (the
-same cyclic reduction, sums in another order);
+same cyclic reduction, sums in another order); ba_assemble with each robust
+loss as without one;
 undistort 2.5e-4 px in f32 (a few ulp at 700 px: the kernel's steps are
 fused multiply-adds with an approximate reciprocal of the determinant) and
-1e-9 px in f64; the f64 solves to 1e-8 in the poses, as against JAX."""
+1e-9 px in f64; the f64 solves (paths A, B, the loop-closure solve and the
+incremental stream) to 1e-8 in the poses, as against JAX; two f32 solves of
+paths A and B give the same bits."""
 
 import numpy as np
 import pytest
@@ -23,9 +26,11 @@ import torch
 
 from slam_tricks_tpu_torch.ops import (ba_assemble, spd_solve, tridiag_solve,
                                        undistort)
-from slam_tricks_tpu_torch.sim import (make_scene, make_trajectory_scene,
-                                       perturb_scene)
-from slam_tricks_tpu_torch.solvers import banded_flat, schur_flat_sm
+from slam_tricks_tpu_torch.residuals import robust
+from slam_tricks_tpu_torch.sim import (make_loop_scene, make_scene,
+                                       make_trajectory_scene, perturb_scene)
+from slam_tricks_tpu_torch.solvers import (banded_flat, incremental,
+                                           loop_flat, schur_flat_sm)
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +109,53 @@ def test_ba_assemble_kernel_is_deterministic(layout):
     two = ba_assemble.linearize_assemble(*args, index)
     for name, a, b in zip(_ASSEMBLE_OUT, one, two):
         assert torch.equal(a, b), name
+
+
+_LOSSES = [robust.huber(1.0), robust.cauchy(1.0), robust.tukey(4.685),
+           robust.huber(0.01), robust.chi2_gate(0.0)]
+
+
+def _gate_threshold(args):
+    """A chi-square gate threshold in the lowest gap wider than 1e-3
+    relative between two live slots' squared residuals s in the upper 5%:
+    the gate is a step, and in f32 the kernel's fused multiply-adds move s
+    by ~1e-5 relative, so a slot on the threshold would add itself in one
+    version and not in the other."""
+    (r0, r1), *_ = ba_assemble._linearize_sm(*args)
+    live = args[5] > 0
+    s = torch.sort(((r0 * r0 + r1 * r1)[live] / args[5][live]).double()).values
+    top = s[int(0.95 * s.numel()):]
+    wide = torch.nonzero(top[1:] / top[:-1] > 1.001)
+    assert wide.numel()
+    i = int(wide[0])
+    return float(torch.sqrt(top[i] * top[i + 1]))
+
+
+@pytest.mark.parametrize("loss", _LOSSES, ids=lambda x: x.kind + str(x.param))
+@pytest.mark.parametrize("layout", ["A", "B"])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
+                                        (torch.float64, 1e-10)])
+def test_ba_assemble_kernel_with_loss_matches_plain(dtype, tol, layout, loss):
+    """The gate (its threshold set from the slots, ``_gate_threshold``)
+    turns the live slots above it off (weight 0). It also takes off the
+    slots with the largest residuals, which set max |gl| and max |gp|: what
+    is left are small sums that cancel, and f32 rounding alone (the plain
+    version in f32 against f64) reaches 1.7e-4 of max |gl| at layout B, so
+    the gate's f32 tolerance is 5e-4."""
+    dev = require_cuda()
+    args, index = _assemble_args(layout, dtype, dev)
+    if loss.kind == "chi2_gate":
+        loss = robust.chi2_gate(_gate_threshold(args))
+        tol = 5e-4 if dtype == torch.float32 else tol
+    ref = ba_assemble.linearize_assemble_plain(*args, loss)
+    before = ba_assemble.LAUNCHES
+    out = ba_assemble.linearize_assemble(*args, index, loss)
+    again = ba_assemble.linearize_assemble(*args, index, loss)
+    torch.cuda.synchronize()
+    assert ba_assemble.LAUNCHES == before + 2
+    for name, a, b, a2 in zip(_ASSEMBLE_OUT, out, ref, again):
+        assert rel_err(a, b) < tol, (name, rel_err(a, b))
+        assert torch.equal(a, a2), name
 
 
 def test_ba_assemble_kernel_many_cameras():
@@ -192,15 +244,21 @@ def test_spd_solve_kernel_refuses_too_large_n():
         spd_solve.spd_solve(S, torch.zeros(n, device=dev))
 
 
-def test_spd_solve_kernel_clamps_non_spd_pivot():
-    """Like the Pallas kernel, and unlike the plain version, the kernel
-    clamps a non-positive pivot at 1e-30 and returns finite values."""
+@pytest.mark.parametrize("n, bad", [(3, 1), (200, 7), (200, 199), (577, 576),
+                                    (577, 300)])
+def test_spd_solve_kernel_non_spd_gives_nan(n, bad):
+    """A pivot <= 0 (row `bad` of an SPD matrix made negative: in the first
+    tile, the last, the ragged last tile of 577 or a middle one) gives NaN
+    in every value, as the plain version does, in f32 and f64; the
+    cooperative grid still reaches every barrier (the call returns)."""
     dev = require_cuda()
-    S = torch.diag(torch.tensor([1.0, -1.0, 2.0], dtype=torch.float64,
-                                device=dev))
-    x = spd_solve.spd_solve(S, torch.ones(3, dtype=torch.float64, device=dev))
-    assert torch.isfinite(x).all()
-    assert not torch.isfinite(spd_solve.spd_solve_plain(S, torch.ones_like(x))).any()
+    for dtype in (torch.float32, torch.float64):
+        S, b = _spd_system(n, dtype, dev)
+        S[bad, bad] = -S[bad, bad]
+        x = spd_solve.spd_solve(S, b)
+        torch.cuda.synchronize()
+        assert torch.isnan(x).all()
+        assert torch.isnan(spd_solve.spd_solve_plain(S, b)).all()
 
 
 def test_solve_on_cuda_matches_cpu():
@@ -383,3 +441,97 @@ def test_banded_solve_on_cuda_matches_cpu(n_cams, track_len, seed, iters, K):
     assert (out.it, out.done) == (ref.it, ref.done)
     np.testing.assert_allclose(out.poses.t.cpu().numpy(), ref.poses.t.numpy(),
                                rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_solve_gives_the_same_bits_twice(path):
+    """No float atomics on the path: two f32 solves of one problem give the
+    same bits in the cost, rotations, translations and points."""
+    dev = require_cuda()
+    if path == "A":
+        poses0, points0, fixed, work = _problem(torch.float32, dev)
+        solve = lambda: schur_flat_sm.solve_ba_flat_sm(  # noqa: E731
+            poses0, points0, work, fixed_mask=fixed, max_iters=10)
+    else:
+        sc = make_trajectory_scene(n_cams=64, n_points=3000, track_len=8,
+                                   seed=5, dtype=torch.float32, device=dev)
+        poses0, points0, fixed = perturb_scene(sc, pose_rot_noise=0.002,
+                                               pose_trans_noise=0.01,
+                                               point_noise=0.01, seed=6)
+        bw = banded_flat.build_banded_work(sc.obs, sc.n_cams, sc.n_points,
+                                           dtype=torch.float32)
+        solve = lambda: banded_flat.solve_ba_banded(  # noqa: E731
+            poses0, points0, bw, fixed_mask=fixed, max_iters=6)
+    one, two = solve(), solve()
+    for a, b in ((one.cost, two.cost), (one.poses.R, two.poses.R),
+                 (one.poses.t, two.poses.t), (one.points, two.points)):
+        assert torch.equal(a, b)
+
+
+def _loop_problem(device, name):
+    kw = {"compressed": dict(n_cams=16, n_points=200, track_len=3, seed=31),
+          "direct": dict(n_cams=40, n_points=250, track_len=3, seed=41)}[name]
+    sc = make_loop_scene(pix_noise=1e-3, dtype=torch.float64, device=device,
+                         **kw)
+    poses0, points0, fixed = perturb_scene(sc, pose_rot_noise=0.002,
+                                           pose_trans_noise=0.01,
+                                           point_noise=0.01,
+                                           seed=kw["seed"] + 1)
+    lw = loop_flat.build_loop_work(sc.obs, sc.n_cams, sc.n_points,
+                                   dtype=torch.float64, max_band=3)
+    return poses0, points0, fixed, lw
+
+
+@pytest.mark.parametrize("name, loss", [("compressed", None),
+                                        ("direct", None),
+                                        ("compressed", robust.tukey(0.02))])
+def test_loop_solve_on_cuda_matches_cpu(name, loss):
+    """The loop-closure solve (the single-run part's ba_assemble kernel, a
+    launch a step) on the card against the CPU path, f64."""
+    dev = require_cuda()
+    poses0, points0, fixed, lw = _loop_problem("cpu", name)
+    ref = loop_flat.solve_ba_loop(poses0, points0, lw, fixed_mask=fixed,
+                                  max_iters=6, loss=loss)
+    poses0, points0, fixed, lw = _loop_problem(dev, name)
+    before = ba_assemble.LAUNCHES
+    out = loop_flat.solve_ba_loop(poses0, points0, lw, fixed_mask=fixed,
+                                  max_iters=6, loss=loss)
+    assert ba_assemble.LAUNCHES - before == out.it + 1
+    assert (out.it, out.done) == (ref.it, ref.done)
+    np.testing.assert_allclose(out.poses.t.cpu().numpy(), ref.poses.t.numpy(),
+                               rtol=0, atol=1e-8)
+
+
+def test_stream_on_cuda_matches_cpu():
+    """The incremental smoother on the card (a camera index an arrival) against
+    the CPU path, f64: the trajectory of tests/test_torch_incremental.py."""
+    dev = require_cuda()
+    states = []
+    for device in ("cpu", dev):
+        sc = make_trajectory_scene(n_cams=32, n_points=480, track_len=4,
+                                   seed=11, pix_noise=1e-3,
+                                   dtype=torch.float64, device=device)
+        poses0, points0, _ = perturb_scene(sc, pose_rot_noise=0.002,
+                                           pose_trans_noise=0.01,
+                                           point_noise=0.01, seed=12)
+        bw = banded_flat.build_banded_work(sc.obs, 32, 480,
+                                           dtype=torch.float64)
+        fixed = torch.zeros(32, dtype=torch.bool, device=device)
+        fixed[[0, 15]] = True
+        before = (ba_assemble.LAUNCHES, tridiag_solve.LAUNCHES)
+        state, c_dirty = incremental.smoother_init(poses0, points0, bw,
+                                                   n_active=16,
+                                                   fixed_mask=fixed)
+        for a_prev in (16, 20, 24, 28):
+            state, c_dirty = incremental.smoother_arrive(
+                state, bw, a_prev=a_prev, a_new=a_prev + 4, c_dirty=c_dirty,
+                fixed_mask=fixed, gn_steps=2)
+        if device != "cpu":
+            tri = tridiag_solve.LAUNCHES - before[1]
+            assert 1 <= tri <= 20
+            assert ba_assemble.LAUNCHES - before[0] == tri + 2 + 4 * 2 * 5
+        states.append(state)
+    ref, out = states
+    np.testing.assert_allclose(out.poses.t.cpu().numpy(), ref.poses.t.numpy(),
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(float(out.cost), float(ref.cost), rtol=1e-7)

@@ -113,10 +113,16 @@ def test_solve_matches_jax(pix_noise, max_iters):
 
 
 def test_robust_loss_not_ported():
+    """The JAX package's Loss, a pair of closures, is not ported as such:
+    the solver takes the port's Loss (a name and a parameter, which the
+    kernel can take) and refuses the JAX one, or any other object."""
+    from slam_tricks_tpu.residuals import robust as jrobust
+
     _, (_, p0, x0, fx, work) = _problems()
-    with pytest.raises(NotImplementedError):
-        schur_flat_sm.solve_ba_flat_sm(p0, x0, work, fixed_mask=fx,
-                                       loss=object())
+    for loss in (jrobust.huber(1.0), object()):
+        with pytest.raises(TypeError):
+            schur_flat_sm.solve_ba_flat_sm(p0, x0, work, fixed_mask=fx,
+                                           loss=loss)
 
 
 def test_import_leaves_jax_out():
