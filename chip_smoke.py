@@ -10,7 +10,7 @@ huber, cauchy, tukey and the chi-square gate, at paths A's and B's shapes),
 holds two launches of ba_assemble against each other bitwise, checks that
 spd_solve returns NaN on a matrix that is not positive definite, as its
 plain version does, checks small float64 solves through the kernels against
-the CPU path (paths A, B, L and I), then drives the port's five paths
+the CPU path (paths A, B, L and I), then drives the port's paths
 through the kernels, each with every launch count set to 0 just before it:
 
 - A, the headline bundle adjustment (st20 cube room: 96 cameras, 2400
@@ -27,6 +27,26 @@ through the kernels, each with every launch count set to 0 just before it:
 - I, the incremental smoother on path B's scene: a start on 512 cameras,
   then 8 arrivals of 64 cameras up to 1024, 2 Gauss-Newton steps each,
   float32;
+- O, schur.solve_ba on path A's scene, 20 LM iterations, with the dense
+  reduced camera system (spd_solve) and with block-Jacobi PCG (no kernel);
+- F, schur_flat.solve_ba_flat (dense) on path A's scene, 20 iterations,
+  its first accepted step's cost held to path A's; and V, the posterior
+  covariances at F's state;
+- D, schur.solve_ba "paired", the exact dense comparator, on path B's
+  scene (about 7.2 M within-track pairs, S of n = 6144), 5 iterations;
+- P, schur_flat.solve_ba_flat "pcg" on path B's scene, 5 iterations;
+- W, the sliding-window smoother on path B's scene (windows of 24 cameras,
+  shift 12, 8 anchors, 15 iterations a window), in float32 and float64,
+  each window's cost non-negative and no higher than its start, the ATE
+  below the perturbed start's, the float64 sweep on the truth up to a
+  similarity and the float32 one near it; both kernels against plain at
+  the shapes of a window with a prior, in both types; ba_assemble also
+  against plain at path P's grid;
+- G, schur_flat_sm at large C (1024 cameras, 7200 landmarks, K = 464
+  slots a landmark), 12 iterations, and again, which must give the same
+  bits; spd_solve at n = 6144 (paths D's and G's systems) against plain;
+- V on 20- and 64-camera trajectories in float64: the dense covariances
+  against banded_flat's (gated on 20 cameras, reported on 64);
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -36,9 +56,10 @@ and checks what each returns. Prints one line per phase, then a JSON line
 with each kernel's launches, error, times (CUDA events, median of rounds:
 `ms`, `plain_ms` and `library_ms` back to back, host included, as in every
 earlier run; `device_ms` on the card alone, its calls queued behind a head
-start of matrix products) and bound, the card's name and power limit from
+start of matrix products) and bound, each phase's ms per LM iteration,
+iterations, final cost and launches, the card's name and power limit from
 nvidia-smi, and last the JSON status line. With --profile DIR it also writes
-torch.profiler tables of paths A, B and L to DIR.
+torch.profiler tables of paths A, B, L, D and G to DIR.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -58,7 +79,9 @@ ROOT = Path(__file__).resolve().parent
 # acceptance bounds
 ASSEMBLE_REL_TOL = 1e-4     # per output, max |k - p| / max |p|: f32 sums in
 #                             another fixed order than plain's index_add_
+ASSEMBLE_REL_TOL_F64 = 1e-9     # the same in f64
 SPD_RES_FACTOR = 10.0       # kernel residual <= this x the plain one (+ eps)
+SPD_RES_EPS = 1e-6          # (the eps: f32; 1e-14 in f64)
 SPD_RANDOM_REL_TOL = 5e-6   # x vs plain x on a well-conditioned SPD matrix
 TRI_RES_FACTOR = 10.0       # tridiag residual <= this x the plain one (+ eps)
 TRI_RANDOM_REL_TOL = 1e-4   # x vs plain x on the well-conditioned system
@@ -72,14 +95,33 @@ I_RMS_MAX = 1e-4            # path I's RMS reprojection error at its end,
 LOOP_STRUCTURE = (1543, 23, 144)   # loop landmarks, support cameras, width
 #                                    (bench.py:1087-1093's counts, JAX run)
 SMALL_POSE_TOL = 1e-8       # f64 small-scene poses, card vs CPU
+FA_REL_TOL = 1e-4           # path F's first accepted cost vs path A's (the
+#                             same math, f32 sums in another order)
+D_FINAL_COST_MAX = 1e-5     # paths D and P after 5 iterations from 102.4
+P_FINAL_COST_MAX = 1e-5     # (the JAX package on a TPU: 3.7e-7 and 1.2e-6)
+G_FINAL_COST_MAX = 1e-6     # path G after 12 (JAX on a TPU: 7.6e-9 after 9)
+W_F64_ALIGNED_MAX = 1e-6    # path W f64: ATE after the similarity alignment
+#                             (noiseless data: the sweep is exact up to the
+#                             free scale; tools/sweep_precision.py at full
+#                             size: 9.3e-13 on the CPU, 1.6e-12 on an H100)
+W_F32_VS_F64_MAX = 0.02     # path W f32 against f64 after the similarity
+#                             alignment: f32's scale drift (the same tool:
+#                             5.3e-3 and 1.06e-2 on the CPU with 6 and 4
+#                             threads; the start's ATE is 0.0172)
+COV_SYM_TOL = 1e-3          # covariance blocks: max |P - Pᵀ| / max |P|
+COV_PSD_TOL = 1e-4          # and their least eigenvalue >= -this x largest
+V_POSE_RTOL, V_POSE_ATOL = 1e-5, 1e-8   # banded vs dense covariances, f64:
+V_LM_RTOL, V_LM_ATOL = 1e-4, 1e-7       # tests/test_banded_flat.py:132-190
 UNDISTORT_TOL = 2.5e-4      # px, kernel vs plain, f32 (a few ulp at 700 px)
 UNDISTORT_F64_TOL = 1e-9    # px, kernel vs plain, f64
 ROUND_TRIP_TOL = 1e-3       # px, |undistort(distort(px)) - px|, f32
 
 # peaks of one H100 SXM (NVIDIA's data sheet): the bound of each kernel,
-# all of which run in float32 outside the tensor cores here
+# all of which run outside the tensor cores here, in float32 (float64 on
+# path W's f64 sweep)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+F64_FLOPS_PER_S = 34e12
 
 
 def _log(phase, msg):
@@ -134,10 +176,12 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, f64=False):
     """The least time in ms the card could take: bytes over the memory rate
-    or float32 operations over the peak rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    or float32 (with f64, float64) operations over the peak rate, whichever
+    is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (F64_FLOPS_PER_S if f64 else F32_FLOPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -169,6 +213,71 @@ def check_same_bits(one, two, label):
             raise AssertionError(f"{label}: two runs differ in the {name}")
     _log(label, f"a second run: the same bits in the cost ({float(two.cost)!r}"
                 f"), rotations, translations and points")
+
+
+def captured_calls(targets, fn):
+    """Runs fn with each (module, name) of `targets` (a kernel wrapper that
+    a solver module imported) wrapped: for each, the list of the arguments
+    of its calls, their first five tensors copied (the rest, a layout's
+    w, cam_of_slot and camera index, are the layout's own, unchanged)."""
+    import torch
+
+    got, real = {t: [] for t in targets}, {}
+
+    def wrap(key, f):
+        def call(*a):
+            got[key].append(tuple(
+                x.clone() if i < 5 and isinstance(x, torch.Tensor) else x
+                for i, x in enumerate(a)))
+            return f(*a)
+        return call
+
+    for mod, name in targets:
+        real[(mod, name)] = getattr(mod, name)
+        setattr(mod, name, wrap((mod, name), real[(mod, name)]))
+    try:
+        fn()
+    finally:
+        for (mod, name), f in real.items():
+            setattr(mod, name, f)
+    return [got[t] for t in targets]
+
+
+def check_covariances(pose_cov, point_cov, fixed, obs, label):
+    """Pose and landmark covariance blocks finite, symmetric and positive
+    semi-definite (COV_SYM_TOL, COV_PSD_TOL); the fixed cameras' zero."""
+    import torch
+
+    if float(pose_cov[fixed].abs().max()) != 0.0:
+        raise AssertionError(f"{label}: a fixed camera's covariance is not 0")
+    observed = torch.zeros(point_cov.shape[0], dtype=torch.bool,
+                           device=point_cov.device)
+    observed[obs.lm_idx[obs.weight > 0].long()] = True
+    worst = {}
+    for name, blk in (("pose", pose_cov[~fixed]),
+                      ("landmark", point_cov[observed])):
+        if not torch.isfinite(blk).all():
+            raise AssertionError(f"{label}: non-finite {name} covariance")
+        scale = blk.abs().amax(dim=(1, 2))
+        asym = float(((blk - blk.mT).abs().amax(dim=(1, 2)) / scale).max())
+        eig = torch.linalg.eigvalsh((0.5 * (blk + blk.mT)).double())
+        neg = float((-eig[:, 0] / eig[:, -1]).max())
+        worst[name] = (asym, neg)
+        if not (asym <= COV_SYM_TOL and neg <= COV_PSD_TOL):
+            raise AssertionError(f"{label}: {name} blocks asymmetry {asym}, "
+                                 f"least / largest eigenvalue {-neg}")
+    _log(label, f"{int((~fixed).sum())} pose and {int(observed.sum())} "
+                f"landmark blocks: max asymmetry / least eigenvalue ratio "
+                f"poses {worst['pose'][0]:.2e} / {-worst['pose'][1]:.2e}, "
+                f"landmarks {worst['landmark'][0]:.2e} / "
+                f"{-worst['landmark'][1]:.2e}; fixed cameras zero")
+
+
+def covariance_err(a, b, rtol, atol):
+    """The worst |a - b| / (atol max|b| + rtol |b|): <= 1 passes
+    numpy.testing.assert_allclose(a, b, rtol, atol max|b|)."""
+    bound = atol * b.abs().max() + rtol * b.abs()
+    return float(((a - b).abs() / bound).max())
 
 
 def _profile(fn, path, label):
@@ -212,8 +321,12 @@ def main():
     from slam_tricks_tpu_torch.sim import (make_loop_scene, make_scene,
                                            make_trajectory_scene,
                                            perturb_scene)
-    from slam_tricks_tpu_torch.solvers import (banded_flat, incremental,
-                                               loop_flat, schur_flat_sm)
+    from slam_tricks_tpu_torch.evaluation import metrics
+    from slam_tricks_tpu_torch.manifolds import se3
+    from slam_tricks_tpu_torch.solvers import (banded_flat, covariance,
+                                               incremental, loop_flat,
+                                               pcg_flat, schur, schur_flat,
+                                               schur_flat_sm, sliding_window)
     from slam_tricks_tpu_torch.solvers.common import set_full_precision
 
     ops = (ba_assemble, spd_solve, tridiag_solve, undistort)
@@ -248,6 +361,8 @@ def main():
         out_p = ba_assemble.linearize_assemble_plain(*args_, loss)
         out_k2 = ba_assemble.linearize_assemble(*args_, index, loss)
         torch.cuda.synchronize()
+        tol = (ASSEMBLE_REL_TOL if args_[0].dtype == torch.float32
+               else ASSEMBLE_REL_TOL_F64)
         if loss is not None:
             label = f"{label} {loss.kind}({loss.param:g})"
         err = 0.0
@@ -257,9 +372,9 @@ def main():
             err = max(err, float((a - b).abs().max()))
             _log("ba_assemble", f"{label} {name} {tuple(a.shape)} max rel err "
                                 f"{rel:.3e}")
-            if not rel <= ASSEMBLE_REL_TOL:
+            if not rel <= tol:
                 raise AssertionError(f"ba_assemble {label} {name}: rel err "
-                                     f"{rel} > {ASSEMBLE_REL_TOL}")
+                                     f"{rel} > {tol}")
             if not torch.equal(a, a2):
                 raise AssertionError(f"ba_assemble {label} {name}: two "
                                      f"launches differ")
@@ -275,12 +390,48 @@ def main():
         flops = ba_assemble.FLOPS_PER_SLOT + (
             0 if loss is None else ba_assemble.LOSS_FLOPS_PER_SLOT)
         bound_ms, bound_by = _bound(
-            _nbytes(*args_, *out_k[:4]) + _nbytes(out_k[4]), live * flops)
+            _nbytes(*args_, *out_k[:4]) + _nbytes(out_k[4]), live * flops,
+            args_[0].dtype == torch.float64)
         _log("ba_assemble", f"{label}: kernel {ms:.4f} ms a call "
                             f"({device_ms:.4f} ms on the card alone); plain "
                             f"torch {plain_ms:.4f} ms, bound {bound_ms:.4f} "
                             f"ms ({bound_by})")
         return err, ms, plain_ms, device_ms, bound_ms, bound_by
+
+    def check_spd(S_, b_, label):
+        """Kernel 2 against plain on (S_, b_) (the residual), timed with
+        the library's Cholesky beside it: a dict of the kernels line's
+        numbers."""
+        x_k = spd_solve.spd_solve(S_, b_)
+        x_p = spd_solve.spd_solve_plain(S_, b_)
+        S64, b64 = S_.double(), b_.double()
+        res_k = float((S64 @ x_k.double() - b64).norm() / b64.norm())
+        res_p = float((S64 @ x_p.double() - b64).norm() / b64.norm())
+        del S64
+        diff = _rel(x_k, x_p)
+        eps = SPD_RES_EPS if S_.dtype == torch.float32 else 1e-14
+        _log("spd_solve", f"{label} n={S_.shape[0]} {S_.dtype}: |Sx-b|/|b| "
+                          f"kernel {res_k:.3e} plain {res_p:.3e}; "
+                          f"max|x-x_plain|/max|x_plain| {diff:.3e}")
+        if not res_k <= SPD_RES_FACTOR * res_p + eps:
+            raise AssertionError(f"spd_solve {label}: residual {res_k} > "
+                                 f"{SPD_RES_FACTOR} x plain {res_p} + {eps}")
+        ms, plain_ms, device_ms = _paired_ms(
+            lambda: spd_solve.spd_solve(S_, b_),
+            lambda: spd_solve.spd_solve_plain(S_, b_), reps=3)
+        lib_ms = _time_ms(lambda: torch.cholesky_solve(
+            b_[:, None], torch.linalg.cholesky_ex(S_)[0]), reps=3)
+        n_ = S_.shape[0]
+        bound_ms, by = _bound(_nbytes(S_, b_, b_), n_ ** 3 / 3 + 2 * n_ ** 2,
+                              S_.dtype == torch.float64)
+        _log("spd_solve", f"{label}: kernel {ms:.4f} ms a call "
+                          f"({device_ms:.4f} ms on the card alone); plain "
+                          f"torch {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                          f"bound {bound_ms:.4f} ms ({by})")
+        return {"n": n_, "max_abs_err": float((x_k - x_p).abs().max()),
+                "residual": res_k, "plain_residual": res_p, "ms": ms,
+                "plain_ms": plain_ms, "device_ms": device_ms,
+                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
 
     # ---- 3. kernel 1: linearize + assemble at the headline shapes ----
     scene = make_scene(n_per_wall=400, n_cams=96, seed=0, dtype=f32, device=dev)
@@ -435,6 +586,90 @@ def main():
         _profile(lambda: solve_a(5), args.profile / "path_a.txt",
                  "path A, 5 LM iterations")
     final_a_cost = c[-1]
+    costs_a = c
+
+    # ---- 6b. path O: schur.solve_ba, dense and PCG, on path A's scene ----
+    def run_phase(label, fn, iters_of=lambda out: out.it):
+        """fn(costs) with every launch count set to 0 just before it: (its
+        result, float costs, launches, ms per LM iteration by CUDA events
+        around the whole call, host loop included)."""
+        torch.cuda.synchronize()
+        _reset_counts(*ops)
+        costs = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(costs)
+        end.record()
+        end.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in ops}
+        ms = start.elapsed_time(end) / max(iters_of(out), 1)
+        cf = [float(v) for v in costs]
+        if cf:
+            _log(label, f"{iters_of(out)} LM iterations, cost {cf[0]:.6e} -> "
+                        f"{cf[-1]:.6e}; launches {launches}; {ms:.4f} ms per "
+                        f"LM iteration (CUDA events; host wall {wall_s:.3f} "
+                        f"s)")
+        return out, cf, launches, ms
+
+    def check_state(out, C_, L_, label):
+        if (out.poses.R.shape != (C_, 3, 3) or out.points.shape != (L_, 3)
+                or not torch.isfinite(out.points).all()
+                or not torch.isfinite(out.poses.R).all()):
+            raise AssertionError(f"{label} returned malformed or non-finite "
+                                 f"state")
+
+    phases = {}
+    for solver in ("dense", "pcg"):
+        label = f"path O {solver}"
+        out, cf, launches, ms = run_phase(label, lambda costs: schur.solve_ba(
+            poses0, points0, scene.obs, fixed_mask=fixed, max_iters=20,
+            linear_solver=solver, costs=costs))
+        want = out.it if solver == "dense" else 0
+        if launches["spd_solve"] != want:
+            raise AssertionError(f"{label}: {launches['spd_solve']} spd_solve "
+                                 f"launches, want {want}")
+        _check_costs(cf, FINAL_COST_MAX, label)
+        check_state(out, C, L, label)
+        phases[f"O_{solver}"] = {"ms_per_lm_iter": ms, "iters": out.it,
+                                 "final_cost": cf[-1], "launches": launches}
+
+    # ---- 6c. path F: schur_flat.solve_ba_flat (dense) on path A's scene ----
+    work_f = schur_flat.build_flat_work(scene.obs, C, L, dtype=f32)
+    final_f, cf, launches_f, ms = run_phase(
+        "path F", lambda costs: schur_flat.solve_ba_flat(
+            poses0, points0, scene.obs, work_f, fixed_mask=fixed,
+            max_iters=20, costs=costs))
+    if (launches_f["ba_assemble"] != final_f.it + 1
+            or launches_f["spd_solve"] != final_f.it):
+        raise AssertionError(f"path F skipped a kernel: {launches_f}")
+    _check_costs(cf, FINAL_COST_MAX, "path F")
+    check_state(final_f, C, L, "path F")
+    # the same math as path A: the first accepted step's cost agrees
+    first_f = next(v for v in cf[1:] if v < cf[0])
+    first_a = next(v for v in costs_a[1:] if v < costs_a[0])
+    rel_fa = abs(first_f - first_a) / first_a
+    _log("path F", f"first accepted step's cost {first_f:.8e}, path A's "
+                   f"{first_a:.8e}: rel {rel_fa:.3e} (bound {FA_REL_TOL})")
+    if not rel_fa <= FA_REL_TOL:
+        raise AssertionError(f"path F: first step rel {rel_fa} vs path A")
+    phases["F"] = {"ms_per_lm_iter": ms, "iters": final_f.it,
+                   "final_cost": cf[-1], "launches": launches_f,
+                   "first_step_rel_to_a": rel_fa}
+
+    # ---- 6d. path V: covariances at path F's converged state ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose_cov, point_cov = covariance.ba_covariances(
+        final_f.poses, final_f.points, scene.obs, fixed,
+        compute_landmarks=True)
+    torch.cuda.synchronize()
+    cov_s = time.perf_counter() - t0
+    check_covariances(pose_cov, point_cov, fixed, scene.obs, "path V (F)")
+    phases["V_F"] = {"seconds": cov_s}
+    del pose_cov, point_cov, work_f
 
     # ---- 7. path B scene: the large-C trajectory problem ----
     t0 = time.perf_counter()
@@ -621,6 +856,7 @@ def main():
         _profile(lambda: solve_b(3), args.profile / "path_b.txt",
                  "path B, 3 LM iterations")
     final_b_cost = c[-1]
+    final_b_poses = final.poses
     del args_b, tpoints_s
 
     # ---- 11b. reference: small f64 loop and stream solves, card vs CPU ----
@@ -812,6 +1048,257 @@ def main():
     final_i_cost = stream_costs[-1]
     del state
 
+    # ---- 11e. path D: schur.solve_ba "paired", the exact dense comparator,
+    # on path B's scene (bench.py:1457-1484) ----
+    t0 = time.perf_counter()
+    tobs = tscene.obs
+    pairs = schur.build_track_pairs(tobs.cam_idx, tobs.lm_idx, dtype=f32)
+    torch.cuda.synchronize()
+    n_pairs = int((pairs.pair_w > 0).sum())
+    _log("path D", f"{n_pairs} within-track pairs in {pairs.pair_a.shape[0]} "
+                   f"chunks of {pairs.pair_a.shape[1]}; built in "
+                   f"{time.perf_counter() - t0:.2f} s")
+    solve_d = lambda iters, costs=None: schur.solve_ba(  # noqa: E731
+        tposes0, tpoints0, tobs, fixed_mask=tfixed, max_iters=iters,
+        linear_solver="paired", track_pairs=pairs, costs=costs)
+    final_d, cf, launches_d, ms = run_phase("path D", lambda costs: solve_d(
+        5, costs))
+    _log("path D", "costs " + " ".join(f"{v:.4e}" for v in cf))
+    if launches_d["spd_solve"] != final_d.it or final_d.it < 1:
+        raise AssertionError(f"path D: launches {launches_d}")
+    _check_costs(cf, D_FINAL_COST_MAX, "path D")
+    check_state(final_d, CB, LB_, "path D")
+    phases["D"] = {"ms_per_lm_iter": ms, "iters": final_d.it,
+                   "final_cost": cf[-1], "launches": launches_d,
+                   "pairs": n_pairs}
+    if args.profile is not None:
+        _profile(lambda: solve_d(2), args.profile / "path_d.txt",
+                 "path D, 2 LM iterations")
+    # the system D's first step solves (n = 6144), for the kernel check
+    (S_d, b_d), = captured_calls([(schur, "spd_solve")],
+                                 lambda: solve_d(1))[0][:1]
+    del final_d
+
+    # ---- 11f. path P: schur_flat.solve_ba_flat "pcg" on path B's scene
+    # (bench.py:1419-1455) ----
+    t0 = time.perf_counter()
+    work_p = schur_flat.build_flat_work(tobs, CB, LB_, dtype=f32)
+    pcg_p = pcg_flat.build_pcg_work(tobs, CB, dtype=f32, n_points=LB_)
+    torch.cuda.synchronize()
+    _log("path P", f"slot grid K={work_p.slot.w.shape[0]} L={LB_}, camera "
+                   f"table Kc={pcg_p.cam_table.shape[1]}, adjacency table "
+                   f"Ka={pcg_p.adj_a.shape[1]}; built in "
+                   f"{time.perf_counter() - t0:.2f} s")
+    slot_p = work_p.slot
+    k1p = dict(zip(k1_keys, check_assemble(
+        (tposes0.R.reshape(CB, 9), tposes0.t, tpoints0, slot_p.uv0,
+         slot_p.uv1, slot_p.w, slot_p.cam_of_slot), slot_p.cam_index,
+        "path P")))
+    final_p, cf, launches_p, ms = run_phase(
+        "path P", lambda costs: schur_flat.solve_ba_flat(
+            tposes0, tpoints0, tobs, work_p, fixed_mask=tfixed, max_iters=5,
+            linear="pcg", pcg_work=pcg_p, cg_iters=50, cg_tol=1e-6,
+            costs=costs))
+    _log("path P", "costs " + " ".join(f"{v:.4e}" for v in cf))
+    if launches_p["ba_assemble"] != final_p.it + 1:
+        raise AssertionError(f"path P: launches {launches_p}")
+    _check_costs(cf, P_FINAL_COST_MAX, "path P")
+    check_state(final_p, CB, LB_, "path P")
+    phases["P"] = {"ms_per_lm_iter": ms, "iters": final_p.it,
+                   "final_cost": cf[-1], "launches": launches_p}
+    del final_p, work_p, pcg_p, slot_p
+
+    # ---- 11g. path W: the sliding-window smoother on path B's scene, in
+    # f32 and in f64 (the scene and its perturbation made in f64: noiseless
+    # data, not f32's rounding of them). The data fix no scale: the f64
+    # sweep recovers the truth up to a similarity (W_F64_ALIGNED_MAX), its
+    # raw ATE is where the free scale went; the f32 sweep is held to the
+    # f64 one after the same alignment (W_F32_VS_F64_MAX). Both kernels are
+    # held against plain at the shapes of W's second window (its first
+    # call of each, the first window with a prior), captured from the same
+    # sweep cut to its first 36 cameras ----
+    ate_start = float(metrics.ate_translation_rmse(tposes0, tscene.poses_true))
+    ate_batch = float(metrics.ate_translation_rmse(final_b_poses,
+                                                   tscene.poses_true))
+    tscene64 = make_trajectory_scene(n_cams=1024, n_points=200_000,
+                                     track_len=8, seed=11, dtype=f64,
+                                     device=dev)
+    tposes64, tpoints64, _ = perturb_scene(
+        tscene64, pose_rot_noise=0.002, pose_trans_noise=0.01,
+        point_noise=0.01, seed=12)
+    as64 = lambda p: se3.SE3(p.R.double(), p.t.double())  # noqa: E731
+    truth64 = tscene64.poses_true
+    k1w, k2w, sweeps = {}, {}, {}
+    for dtype_w in (f32, f64):
+        name_w = str(dtype_w).rsplit(".", 1)[1]
+        label = f"path W {name_w}"
+        obs_w, poses0_w, points0_w = ((tscene64.obs, tposes64, tpoints64)
+                                      if dtype_w == f64
+                                      else (tobs, tposes0, tpoints0))
+        sweep = lambda poses, **kw: sliding_window.run_sliding_window(  # noqa: E731
+            obs_w, poses, points0_w, window=24, shift=12, na=8,
+            max_iters=15, **kw)
+        (poses_w, points_w, diag_w), _, launches_w, total_ms = run_phase(
+            label, lambda costs: sweep(poses0_w), iters_of=lambda out: 1)
+        n_win = len(diag_w)
+        sweeps[dtype_w] = as64(poses_w)
+        ate_w = float(metrics.ate_translation_rmse(sweeps[dtype_w], truth64))
+        ate_al = float(metrics.ate_translation_rmse(
+            metrics.align_trajectories(sweeps[dtype_w], truth64), truth64))
+        iters_w = sum(d["it"] for d in diag_w)
+        _log(label, f"{n_win} windows of 24 cameras (shift 12, 8 anchors), "
+                    f"{iters_w} LM iterations in all, "
+                    f"{statistics.mean(d['n_obs'] for d in diag_w):.0f} "
+                    f"observations a window: launches {launches_w}; "
+                    f"{total_ms:.1f} ms in all, {total_ms / n_win:.3f} ms a "
+                    f"window (CUDA events)")
+        _log(label, f"ATE (translation RMSE) {ate_w:.6e}, after the "
+                    f"similarity alignment {ate_al:.6e}; perturbed start "
+                    f"{ate_start:.6e}; path B's batch solve {ate_batch:.6e}")
+        _log(label, "window costs " + " ".join(
+            f"{d['cost0']:.3e}->{d['cost']:.3e}" for d in diag_w))
+        for d in diag_w:
+            if not (math.isfinite(d["cost"]) and 0 <= d["cost"] <= d["cost0"]):
+                raise AssertionError(f"{label}: window {d['w0']} cost "
+                                     f"{d['cost0']} -> {d['cost']}")
+        if not ate_w < ate_start:
+            raise AssertionError(f"{label}: ATE {ate_w} >= start {ate_start}")
+        if dtype_w == f64 and not ate_al <= W_F64_ALIGNED_MAX:
+            raise AssertionError(f"{label}: aligned ATE {ate_al} > "
+                                 f"{W_F64_ALIGNED_MAX}")
+        if (launches_w["ba_assemble"] < iters_w
+                or launches_w["spd_solve"] < iters_w):
+            raise AssertionError(f"{label} skipped a kernel: {launches_w}")
+        if (not torch.isfinite(poses_w.t).all()
+                or not torch.isfinite(points_w).all()):
+            raise AssertionError(f"{label} returned non-finite state")
+        phases["W_" + name_w] = {
+            "ms_per_window": total_ms / n_win, "ms_total": total_ms,
+            "windows": n_win, "lm_iters": iters_w, "launches": launches_w,
+            "ate": ate_w, "ate_aligned": ate_al, "ate_start": ate_start,
+            "ate_batch_b": ate_batch,
+            "min_window_cost": min(d["cost"] for d in diag_w)}
+
+        # the kernels at W's shapes: window 1's first call of each
+        head = se3.SE3(poses0_w.R[:36], poses0_w.t[:36])
+        diag_h = []
+        asm_calls, spd_calls = captured_calls(
+            [(schur_flat_sm, "linearize_assemble"), (schur_flat, "spd_solve")],
+            lambda: diag_h.extend(sweep(head)[2]))
+        same = ("w0", "n_obs", "it")
+        if (len(diag_h) != 2
+                or any(diag_h[0][k] != diag_w[0][k] for k in same)):
+            raise AssertionError(f"{label}: the first 36 cameras' sweep is "
+                                 f"not the whole sweep's head: {diag_h}")
+        it0 = diag_h[0]["it"]
+        a_w = asm_calls[it0 + 1]
+        k1w[name_w] = dict(zip(k1_keys, check_assemble(
+            a_w[:7], a_w[7], f"path W {name_w} window 1", a_w[8])))
+        k2w[name_w] = check_spd(*spd_calls[it0], f"path W {name_w} window 1")
+        del asm_calls, spd_calls, a_w
+    f32_al = metrics.align_trajectories(sweeps[f32], sweeps[f64])
+    w_f32_vs_f64 = float(metrics.ate_translation_rmse(f32_al, sweeps[f64]))
+    _log("path W", f"f32 sweep against the f64 sweep after the similarity "
+                   f"alignment: RMSE {w_f32_vs_f64:.6e} (bound "
+                   f"{W_F32_VS_F64_MAX})")
+    if not w_f32_vs_f64 <= W_F32_VS_F64_MAX:
+        raise AssertionError(f"path W: f32 against f64 {w_f32_vs_f64}")
+    phases["W_float32"]["aligned_to_f64"] = w_f32_vs_f64
+    del poses_w, points_w, pairs, tobs, sweeps, f32_al, truth64, tscene64
+    del tposes64, tpoints64
+
+    # ---- 11h. path G: schur_flat_sm at large C (bench.py:973-1050) ----
+    t0 = time.perf_counter()
+    gscene = make_scene(n_per_wall=1200, n_cams=1024, seed=5, dtype=f32,
+                        device=dev)
+    gposes0, gpoints0, gfixed = perturb_scene(gscene, 0.002, 0.01, 0.01,
+                                              seed=6)
+    gwork = schur_flat_sm.build_slot_work(gscene.obs, gscene.n_cams,
+                                          gscene.n_points, dtype=f32,
+                                          use_onehot=False)
+    torch.cuda.synchronize()
+    CG_, LG_, KG_ = gscene.n_cams, gscene.n_points, gwork.w.shape[0]
+    _log("scene G", f"C={CG_} L={LG_} K={KG_} live observations="
+                    f"{int((gwork.w > 0).sum())}; set-up "
+                    f"{time.perf_counter() - t0:.2f} s")
+    args_g = (gposes0.R.reshape(CG_, 9), gposes0.t, gpoints0, gwork.uv0,
+              gwork.uv1, gwork.w, gwork.cam_of_slot)
+    k1g = dict(zip(k1_keys, check_assemble(args_g, gwork.cam_index,
+                                           "path G")))
+    out_g = ba_assemble.linearize_assemble_plain(*args_g)
+    S_g, b_g, *_ = schur_flat_sm.reduced_camera_system(*out_g[:5], lam,
+                                                       gfixed, gwork)
+    del out_g, args_g
+    solve_g = lambda iters, costs=None: schur_flat_sm.solve_ba_flat_sm(  # noqa: E731
+        gposes0, gpoints0, gwork, fixed_mask=gfixed, max_iters=iters,
+        costs=costs)
+    final_g, cf, launches_g, ms = run_phase("path G", lambda costs: solve_g(
+        12, costs))
+    _log("path G", "costs " + " ".join(f"{v:.4e}" for v in cf))
+    if (launches_g["ba_assemble"] != final_g.it + 1
+            or launches_g["spd_solve"] != final_g.it):
+        raise AssertionError(f"path G skipped a kernel: {launches_g}")
+    _check_costs(cf, G_FINAL_COST_MAX, "path G")
+    check_state(final_g, CG_, LG_, "path G")
+    check_same_bits(final_g, solve_g(12), "path G")
+    phases["G"] = {"ms_per_lm_iter": ms, "iters": final_g.it,
+                   "final_cost": cf[-1], "launches": launches_g}
+    if args.profile is not None:
+        _profile(lambda: solve_g(3), args.profile / "path_g.txt",
+                 "path G, 3 LM iterations")
+    del final_g, gwork, gscene
+
+    # ---- 11i. kernel 2 at n = 6144: the systems of paths D and G ----
+    k2_big = {}
+    for label, S_, b_ in (("D", S_d, b_d), ("G", S_g, b_g)):
+        k2_big[label] = check_spd(S_, b_, f"path {label} S")
+    del S_d, b_d, S_g, b_g
+
+    # ---- 11j. path V on converged trajectories, f64: the dense
+    # covariances against the banded ones. Gated on the 20-camera scene of
+    # the JAX package's own cross-check (tests/test_banded_flat.py:164-190),
+    # reported on 64 cameras: there the trajectory's weak gauge (cameras 0
+    # and C-1 fixed, neighbours on the circle) leaves the two exact
+    # inverses apart by about the tolerance itself, the JAX package's own
+    # pair as well ----
+    for n_cams_v, n_points_v, track_v, seed_v in ((20, 250, 5, 85),
+                                                  (64, 1200, 6, 81)):
+        label = f"path V ({n_cams_v}-camera trajectory)"
+        vsc = make_trajectory_scene(n_cams=n_cams_v, n_points=n_points_v,
+                                    track_len=track_v, seed=seed_v,
+                                    dtype=f64, device=dev)
+        vp0, vx0, vfx = perturb_scene(vsc, pose_rot_noise=0.002,
+                                      pose_trans_noise=0.01,
+                                      point_noise=0.01, seed=seed_v + 1)
+        vbw = banded_flat.build_banded_work(vsc.obs, vsc.n_cams,
+                                            vsc.n_points, dtype=f64)
+        vout = banded_flat.solve_ba_banded(vp0, vx0, vbw, fixed_mask=vfx,
+                                           max_iters=40)
+        dpc, dlc = covariance.ba_covariances(vout.poses, vout.points,
+                                             vsc.obs, vfx, lam=1e-8,
+                                             compute_landmarks=True)
+        bpc, blc = banded_flat.banded_covariances(
+            vout.poses, vout.points, vbw, vfx, lam=1e-8,
+            compute_landmarks=True)
+        check_covariances(dpc, dlc, vfx, vsc.obs, label)
+        observed = torch.zeros(vsc.n_points, dtype=torch.bool, device=dev)
+        observed[vsc.obs.lm_idx[vsc.obs.weight > 0].long()] = True
+        pose_err = covariance_err(bpc, dpc, V_POSE_RTOL, V_POSE_ATOL)
+        lm_err = covariance_err(blc[observed], dlc[observed], V_LM_RTOL,
+                                V_LM_ATOL)
+        gated = n_cams_v == 20
+        _log(label, f"f64, {vout.it} LM iterations, cost "
+                    f"{float(vout.cost):.3e}: banded against dense "
+                    f"covariances, worst |b - d| / (atol max|d| + rtol |d|):"
+                    f" poses {pose_err:.3e}, landmarks {lm_err:.3e} "
+                    + ("(pass <= 1)" if gated else "(reported)"))
+        if gated and not (pose_err <= 1.0 and lm_err <= 1.0):
+            raise AssertionError(f"{label}: banded and dense covariances "
+                                 f"differ ({pose_err}, {lm_err})")
+        phases[f"V_{n_cams_v}"] = {"pose_err": pose_err, "lm_err": lm_err,
+                                   "gated": gated}
+    del vsc, vbw, dpc, dlc, bpc, blc
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -878,17 +1365,21 @@ def main():
                    f"plain torch {k4_plain_ms:.4f} ms, bound {k4_bound:.4f} "
                    f"ms ({k4_by}): bound / card {k4_bound / k4_device_ms:.3f}")
 
+    launches_of = {"A": launches_a, "B": launches_b, "L": launches_l,
+                   "I": launches_i, "E": launches_e,
+                   **{k: v["launches"] for k, v in phases.items()
+                      if "launches" in v}}
+    by_path = {name: {path: n[name] for path, n in launches_of.items()
+                      if n[name]}
+               for name in ("ba_assemble", "spd_solve")}
     kernels = [
         {"name": "ba_assemble", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/ba_assemble.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_ba.py:47",
-         "launches": sum(n["ba_assemble"] for n in (launches_a, launches_b,
-                                                     launches_l, launches_i)),
-         "launches_by_path": {"A": launches_a["ba_assemble"],
-                              "B": launches_b["ba_assemble"],
-                              "L": launches_l["ba_assemble"],
-                              "I": launches_i["ba_assemble"]},
-         "max_abs_err": max(k1["err"], k1b["err"], k1l["err"]),
+         "launches": sum(by_path["ba_assemble"].values()),
+         "launches_by_path": by_path["ba_assemble"],
+         "max_abs_err": max(k1["err"], k1b["err"], k1l["err"], k1g["err"],
+                            k1p["err"], *(k["err"] for k in k1w.values())),
          "loss_max_abs_err": loss_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "device_ms": k1["device_ms"],
@@ -905,14 +1396,27 @@ def main():
          "path_b_tukey": {"ms": k1_loss["ms"], "plain_ms": k1_loss["plain_ms"],
                           "device_ms": k1_loss["device_ms"],
                           "bound_ms": k1_loss["bound_ms"],
-                          "bound_by": k1_loss["bound_by"]}},
+                          "bound_by": k1_loss["bound_by"]},
+         "path_g": {"ms": k1g["ms"], "plain_ms": k1g["plain_ms"],
+                    "device_ms": k1g["device_ms"],
+                    "bound_ms": k1g["bound_ms"], "bound_by": k1g["bound_by"]},
+         "path_p": {"ms": k1p["ms"], "plain_ms": k1p["plain_ms"],
+                    "device_ms": k1p["device_ms"],
+                    "bound_ms": k1p["bound_ms"], "bound_by": k1p["bound_by"]},
+         **{f"path_w_{name}": {key: k[key] for key in k1_keys}
+            for name, k in k1w.items()}},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
-         "launches": launches_a["spd_solve"], "max_abs_err": k2_abs,
+         "launches": sum(by_path["spd_solve"].values()),
+         "launches_by_path": by_path["spd_solve"],
+         "max_abs_err": max(k2_abs, *(k["max_abs_err"] for k in
+                                     (*k2_big.values(), *k2w.values()))),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
          "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": k2_lib_ms},
+         "bound_by": k2_by, "library_ms": k2_lib_ms,
+         "n6144_path_d": k2_big["D"], "n6144_path_g": k2_big["G"],
+         **{f"path_w_{name}": k for name, k in k2w.items()}},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",
@@ -944,7 +1448,8 @@ def main():
                       "final_cost_b": final_b_cost,
                       "final_cost_l": final_l_cost,
                       "final_cost_i": final_i_cost,
-                      "undistort_px_per_s": npx / k4_ms * 1e3}), flush=True)
+                      "undistort_px_per_s": npx / k4_ms * 1e3,
+                      "phases": phases}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -5,10 +5,15 @@ module of the same path there and is tested against it on the CPU. The port
 imports torch and numpy only, never jax.
 
 The paths ported so far: A, the headline bundle adjustment
-(``solvers.schur_flat_sm``); B, the large-C trajectory bundle adjustment
-(``solvers.banded_flat``); L, the same with loop closures
+(``solvers.schur_flat_sm``, also at large C: G); B, the large-C trajectory
+bundle adjustment (``solvers.banded_flat``); L, the same with loop closures
 (``solvers.loop_flat``); I, the incremental smoother on B's layout
-(``solvers.incremental``); E, the st1 undistortion
+(``solvers.incremental``); O and D, the observation-list reference solver
+(``solvers.schur.solve_ba``: dense, paired, PCG, and tracks, which runs
+the dense solve here); F and P, the flat
+layout (``solvers.schur_flat``, dense and PCG); W, the sliding-window
+smoother (``solvers.sliding_window``); V, posterior covariances
+(``solvers.covariance``); E, the st1 undistortion
 (``residuals.camera.undistort_points_fast``).
 
 - ``manifolds``  SO(3) and SE(3), batched over a leading dimension
@@ -18,11 +23,18 @@ The paths ported so far: A, the headline bundle adjustment
 - ``solvers``    ``schur_flat_sm.solve_ba_flat_sm``,
                  ``banded_flat.solve_ba_banded`` (with the stored
                  block-tridiagonal factor and the banded covariances),
-                 ``loop_flat.solve_ba_loop`` (LM with Schur elimination) and
-                 ``incremental.smoother_init`` / ``smoother_arrive``
+                 ``loop_flat.solve_ba_loop`` (LM with Schur elimination),
+                 ``incremental.smoother_init`` / ``smoother_arrive``,
+                 ``schur.solve_ba`` with ``pcg``, ``schur_flat.solve_ba_flat``
+                 with ``pcg_flat``, ``covariance.ba_covariances`` and
+                 ``sliding_window.run_sliding_window``
 - ``residuals``  ``camera``: pinhole intrinsics, radial-tangential
-                 distortion; ``robust``: the robust losses of ``loss=``
-- ``ops``        the hand-written CUDA kernels and their plain torch versions:
+                 distortion; ``robust``: the robust losses of ``loss=``;
+                 ``reprojection``: residuals and analytic Jacobians;
+                 ``icp.umeyama``
+- ``evaluation`` ``metrics``: ATE, trajectory alignment, reprojection RMS
+- ``ops``        ``smallchol`` (unrolled 3x3 / 6x6 Cholesky, plain torch) and
+                 the hand-written CUDA kernels and their plain torch versions:
                  ``ba_assemble`` (linearize + assemble), ``spd_solve``
                  (reduced camera system), ``tridiag_solve`` (block-tridiagonal
                  reduced camera system), ``undistort`` (Newton undistortion)

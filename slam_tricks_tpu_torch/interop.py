@@ -2,7 +2,8 @@
 
 Each function takes the JAX package's objects (``se3.SE3``,
 ``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
-``loop_flat.LoopWork``,
+``loop_flat.LoopWork``, ``schur_flat.FlatWork``, ``pcg_flat.PCGWork``,
+``schur.TrackPairs``, ``pcg.BandPairs``, ``sliding_window.WindowPrior``,
 ``camera.Intrinsics``, ``camera.DistCoeffs``) or anything else whose
 fields numpy can read, copies every array through numpy and returns the
 port's counterpart on `device`, the card unless the caller names another
@@ -20,7 +21,13 @@ from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
 from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork, chunk_table
 from slam_tricks_tpu_torch.solvers.loop_flat import LoopWork
+from slam_tricks_tpu_torch.solvers.pcg import BandPairs
+from slam_tricks_tpu_torch.solvers.pcg_flat import pcg_work_from_tables
+from slam_tricks_tpu_torch.solvers.schur import TrackPairs, TrackTable
+from slam_tricks_tpu_torch.solvers.schur_flat import (flat_work_from_table,
+                                                      obs_slots)
 from slam_tricks_tpu_torch.solvers.schur_flat_sm import SlotWork, slot_tables
+from slam_tricks_tpu_torch.solvers.sliding_window import WindowPrior
 
 
 def tensor(a, device=None):
@@ -99,3 +106,49 @@ def intrinsics_from_jax(intr, device=None):
 def dist_from_jax(dist, device=None):
     """DistCoeffs of 0-d tensors."""
     return DistCoeffs(*(tensor(v, device) for v in dist))
+
+
+def _flat_table(work):
+    """The track table of a JAX FlatWork (numpy); in grid mode, where it
+    keeps none, row l K + k is slot k of landmark l."""
+    if work.table is not None:
+        return TrackTable(obs_idx=np.array(work.table.obs_idx),
+                          mask=np.array(work.table.mask))
+    mask = np.array(work.mask_lk)
+    L, K = mask.shape
+    return TrackTable(obs_idx=np.arange(L * K, dtype=np.int32).reshape(L, K),
+                      mask=mask)
+
+
+def flat_work_from_jax(work, obs, n_cams, device=None):
+    """The port's FlatWork with the slot grid of the JAX FlatWork's track
+    table (or grid layout) over the observations `obs` it was built from;
+    its one-hot or camera table is not carried over (the port gathers)."""
+    table = _flat_table(work)
+    obs_t = obs_from_jax(obs, device)
+    return flat_work_from_table(obs_t, table, n_cams, obs_t.uv.dtype)
+
+
+def pcg_work_from_jax(pcg_work, flat_work, device=None):
+    """The JAX PCGWork's tables, observation ids translated to the slot ids
+    of the port's FlatWork of the JAX `flat_work` (``flat_work_from_jax``)."""
+    table = _flat_table(flat_work)
+    mask = np.array(pcg_work.cam_mask)
+    tables = (np.array(pcg_work.cam_table), mask, np.array(pcg_work.adj_a),
+              np.array(pcg_work.adj_b), np.array(pcg_work.adj_mask))
+    dtype = torch.float64 if mask.dtype == np.float64 else torch.float32
+    return pcg_work_from_tables(tables, obs_slots(table),
+                                table.obs_idx.shape[0], resolve(device),
+                                dtype)
+
+
+def track_pairs_from_jax(pairs, device=None):
+    return TrackPairs(*(tensor(a, device) for a in pairs))
+
+
+def band_pairs_from_jax(band_pairs, device=None):
+    return BandPairs(*(tensor(a, device) for a in band_pairs))
+
+
+def window_prior_from_jax(prior, device=None):
+    return WindowPrior(*(tensor(a, device) for a in prior))

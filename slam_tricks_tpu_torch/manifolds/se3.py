@@ -27,8 +27,24 @@ def exp(xi):
     return SE3(so3.exp(w), _matvec(so3.jl(w), rho))
 
 
+def log(T):
+    """SE3 -> [rho, omega] (..., 6), rho = Jl(omega)^-1 t."""
+    w = so3.log(T.R)
+    return torch.cat([_matvec(so3.jl_inv(w), T.t), w], dim=-1)
+
+
 def mul(Ta, Tb):
     return SE3(Ta.R @ Tb.R, _matvec(Ta.R, Tb.t) + Ta.t)
+
+
+def inv(T):
+    Rt = T.R.mT
+    return SE3(Rt, -_matvec(Rt, T.t))
+
+
+def act(T, p):
+    """T p for points p (..., 3) under poses of the same leading shape."""
+    return _matvec(T.R, p) + T.t
 
 
 def retract(T, xi):

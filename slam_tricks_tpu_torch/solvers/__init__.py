@@ -1,6 +1,9 @@
-"""Solver layer: the slot-major Schur-complement BA solver (path A), the
-banded trajectory solver (path B), the loop-closure solver (path L) and the
-incremental smoother on the banded layout (path I)."""
+"""Solver layer: the slot-major Schur-complement BA solver (paths A and G),
+the banded trajectory solver (path B), the loop-closure solver (path L),
+the incremental smoother on the banded layout (path I), the
+observation-list reference solver and its PCG (paths O and D), the flat
+layout and its PCG (paths F and P), the sliding-window smoother (path W)
+and the posterior covariances (path V)."""
 
 from slam_tricks_tpu_torch.solvers.banded_flat import (  # noqa: F401
     BandedWork,
@@ -13,6 +16,9 @@ from slam_tricks_tpu_torch.solvers.banded_flat import (  # noqa: F401
     solve_ba_banded,
     tridiag_backward,
     tridiag_forward,
+)
+from slam_tricks_tpu_torch.solvers.covariance import (  # noqa: F401
+    ba_covariances,
 )
 from slam_tricks_tpu_torch.solvers.incremental import (  # noqa: F401
     IncrementalState,
@@ -28,8 +34,37 @@ from slam_tricks_tpu_torch.solvers.loop_flat import (  # noqa: F401
     loop_pose_covariances,
     solve_ba_loop,
 )
+from slam_tricks_tpu_torch.solvers.pcg import (  # noqa: F401
+    BandPairs,
+    build_band_pairs,
+    solve_rcs_pcg,
+)
+from slam_tricks_tpu_torch.solvers.pcg_flat import (  # noqa: F401
+    PCGWork,
+    build_pcg_work,
+    solve_rcs_pcg_flat,
+)
+from slam_tricks_tpu_torch.solvers.schur import (  # noqa: F401
+    TrackPairs,
+    build_track_pairs,
+    build_track_table,
+    solve_ba,
+)
+from slam_tricks_tpu_torch.solvers.schur_flat import (  # noqa: F401
+    FlatWork,
+    build_flat_work,
+    grid_order_obs,
+    solve_ba_flat,
+)
 from slam_tricks_tpu_torch.solvers.schur_flat_sm import (  # noqa: F401
     SlotWork,
     build_slot_work,
     solve_ba_flat_sm,
+)
+from slam_tricks_tpu_torch.solvers.sliding_window import (  # noqa: F401
+    WindowPrior,
+    empty_prior,
+    marginalize,
+    run_sliding_window,
+    solve_window,
 )

@@ -1,13 +1,44 @@
-"""LM state, the track table, the LM control law and the LM loop that the
-Schur solvers share (the subset of ``slam_tricks_tpu/solvers/schur.py``
-that the slot-major and banded solvers use)."""
+"""Block-sparse Schur-complement bundle adjustment over an observation list
+(port of ``slam_tricks_tpu/solvers/schur.py``), and the LM state, track
+table, control law and loop that every Schur solver of the port shares.
 
-from typing import NamedTuple
+``solve_ba`` is the package's reference solver: per-observation residuals
+and analytic Jacobians (``residuals.reprojection``), the normal-equation
+blocks summed per camera and per landmark, the landmarks eliminated by
+batched 3x3 algebra, and the reduced camera system S solved by one of four
+``linear_solver``s: ``"dense"`` (S from the whitened block matrix B, one
+matrix product), ``"paired"`` (S from within-track observation pairs,
+O(N) memory: the exact comparator at large C), ``"tracks"`` and ``"pcg"``
+(matrix-free, ``solvers/pcg.py``). The JAX package's ``"tracks"`` builds
+the dense solve's B through the track table, since scatters serialize on
+a TPU; here the dense solve's fixed-order table sums already avoid
+scatters, so ``"tracks"`` takes the track table for the JAX signature and
+runs the dense solve. The exact ones factor S with ``ops.spd_solve``, the
+CUDA kernel on the card. Every sum over observations runs in an order fixed before the LM
+loop (``common.sum_table`` / ``table_sum``), so the card returns the same
+bits on every run, where ``index_add_`` sums by float atomics; the JAX
+package's ``segment_sum`` and one-hot products compute the same sums.
+
+Gauge: fixed cameras get identity rows and columns in S. Tangent per
+camera: [omega, dt] (SO(3) x R^3), poses stored as T_cw.
+"""
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.manifolds import se3, so3
+from slam_tricks_tpu_torch.ops.smallchol import (cholesky_small,
+                                                 solve_lower_small)
+from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
+from slam_tricks_tpu_torch.residuals import robust
+from slam_tricks_tpu_torch.residuals.reprojection import \
+    reproject_normalized_jacobians
+from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed,
+                                                  set_full_precision,
+                                                  sum_table, table_sum)
 
 
 class BAState(NamedTuple):
@@ -69,8 +100,15 @@ def lm_accept(cost_old, cost_try, lam, nu, pred, bad):
     return accept, lam_new, nu_new
 
 
+def _retract_state(poses, points, dp, dl):
+    """The step on SO(3) x R^3: R exp(omega), t + dt, points + dl."""
+    return (se3.SE3(so3.retract(poses.R, dp[:, :3]), poses.t + dp[:, 3:]),
+            points + dl)
+
+
 def lm_loop(poses0, points0, quantities, solve, *, max_iters,
-            lambda_init=1e-4, xtol=1e-12, costs=None):
+            lambda_init=1e-4, xtol=1e-12, gtol=0.0, costs=None,
+            callback=None, grads=None):
     """The Levenberg-Marquardt loop of the JAX package's Schur solvers, run
     on the host over device tensors with one sync (the stop flag) a step.
 
@@ -78,10 +116,15 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
     in the solver's layout that starts (Hpp, gp, Hll, gl (3, L), ...);
     solve(blocks, lam) -> (dp (C, 6), dl (L, 3), diag_pp (C, 6),
     diag_ll (L, 3)). Steps retract on SO(3) x R^3 (tangent [omega, dt]);
-    the predicted reduction uses the Marquardt diagonals. lambda_init is
-    the first damping; the loop stops when an accepted step is shorter
-    than xtol. If `costs` is a list, the cost at the start and after each
-    step is appended to it (device scalars). Returns a BAState."""
+    the predicted reduction uses the Marquardt diagonals and the gradients
+    grads(blocks) -> (gp (C, 6), gl (L, 3)), by default (blocks[1],
+    blocks[3].T). lambda_init is the first damping; the loop stops when an
+    accepted step is shorter than xtol, or, with gtol > 0, after a step
+    taken where the gradients' largest magnitude was below gtol. If `costs`
+    is a list, the cost at the start and after each step is appended to it
+    (device scalars); callback(it, cost, lam) is called after each step
+    with the 0-based step count and the state it leaves. Returns a
+    BAState."""
     dtype, device = points0.dtype, points0.device
     poses, points = poses0, points0
     blocks, cost = quantities(poses, points)
@@ -91,29 +134,434 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
     if costs is not None:
         costs.append(cost)
     while not done and it < max_iters:
-        gp, gl = blocks[1], blocks[3]
+        gp, gl = (blocks[1], blocks[3].T) if grads is None else grads(blocks)
         dp, dl, diag_pp, diag_ll = solve(blocks, lam)
         bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
         dp_s = torch.where(bad, torch.zeros_like(dp), dp)
         dl_s = torch.where(bad, torch.zeros_like(dl), dl)
-        poses_try = se3.SE3(so3.retract(poses.R, dp_s[:, :3]),
-                            poses.t + dp_s[:, 3:])
-        points_try = points + dl_s
+        poses_try, points_try = _retract_state(poses, points, dp_s, dl_s)
         blocks_try, cost_try = quantities(poses_try, points_try)
 
-        pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl.T))
+        pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl))
         pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp)) + pred_l)
         accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred, bad)
         step_sq = torch.sum(dp_s * dp_s) + torch.sum(dl_s * dl_s)
+        stop = accept & (step_sq < xtol * xtol)
+        if gtol > 0:
+            stop = stop | (torch.maximum(gp.abs().max(), gl.abs().max())
+                           < gtol)
         poses = se3.SE3(torch.where(accept, poses_try.R, poses.R),
                         torch.where(accept, poses_try.t, poses.t))
         points = torch.where(accept, points_try, points)
         cost = torch.where(accept, cost_try, cost)
         blocks = tuple(torch.where(accept, a, b)
                        for a, b in zip(blocks_try, blocks))
+        if callback is not None:
+            callback(it, cost, lam)
         it += 1
         if costs is not None:
             costs.append(cost)
-        done = bool(accept & (step_sq < xtol * xtol))   # one sync a step
+        done = bool(stop)                               # one sync a step
     return BAState(poses=poses, points=points, cost=cost, lam=lam, nu=nu,
                    it=it, done=done)
+
+
+# ---- the observation-list solver (solve_ba) ----
+
+PAIR_SEGMENT = 64   # pairs summed per segment of the paired assembly
+
+
+class ObsTables(NamedTuple):
+    """The fixed summation orders of one observation list (``sum_table``
+    tables over the live observations, weight > 0), built once a problem."""
+    cam: torch.Tensor               # (C, T) the observations of each camera
+    lm: torch.Tensor                # (L, T) of each landmark
+    block: Optional[torch.Tensor]   # (L C, T) of each (landmark, camera)
+    #                                 block of B, the dense solve only
+
+
+def obs_tables(cam_idx, lm_idx, n_cams, n_points, weight=None, blocks=False):
+    """The ``ObsTables`` of an observation list; weight None counts every
+    observation live; blocks=True adds the (landmark, camera) table."""
+    cam, lm = cam_idx.long(), lm_idx.long()
+    if weight is not None:
+        live = weight > 0
+        cam = torch.where(live, cam, -1)
+        lm = torch.where(live, lm, -1)
+    block = None
+    if blocks:
+        block = sum_table(torch.where(cam >= 0, lm * n_cams + cam, -1),
+                          n_points * n_cams)
+    return ObsTables(sum_table(cam, n_cams), sum_table(lm, n_points), block)
+
+
+def _residuals(poses, points, cam_idx, lm_idx, uv):
+    cam, lm = cam_idx.long(), lm_idx.long()
+    pc = (poses.R[cam] @ points[lm][:, :, None])[:, :, 0] + poses.t[cam]
+    return pc[:, :2] / pc[:, 2:] - uv
+
+
+def _linearize_obs(poses, points, cam_idx, lm_idx, uv, weight):
+    """Per-observation residual and Jacobians, sqrt-weighted: (r (N, 2),
+    Jp (N, 2, 6), Jl (N, 2, 3)). An observation of weight 0 gives zeros
+    (also where its camera sees the point at z = 0)."""
+    cam, lm = cam_idx.long(), lm_idx.long()
+    T = se3.SE3(poses.R[cam], poses.t[cam])
+    pred, Jp, Jl = reproject_normalized_jacobians(T, points[lm])
+    sw = torch.sqrt(weight)[:, None]
+    live = (weight > 0)[:, None]
+    r = torch.where(live, (pred - uv) * sw, 0.0)
+    Jp = torch.where(live[..., None], Jp * sw[..., None], 0.0)
+    Jl = torch.where(live[..., None], Jl * sw[..., None], 0.0)
+    return r, Jp, Jl
+
+
+def _cost(poses, points, cam_idx, lm_idx, uv, weight):
+    r = _residuals(poses, points, cam_idx, lm_idx, uv)
+    return 0.5 * torch.sum(weight[:, None] * r * r)
+
+
+def _assemble(r, Jp, Jl, cam_idx, lm_idx, n_cams, n_points, tables=None):
+    """Normal-equation blocks, summed per camera and per landmark in the
+    fixed orders of `tables` (``obs_tables``; built here when None):
+    (Hpp (C, 6, 6), Hll (L, 3, 3), gp (C, 6), gl (L, 3), W_obs (N, 6, 3))."""
+    if tables is None:
+        tables = obs_tables(cam_idx, lm_idx, n_cams, n_points)
+    N = r.shape[0]
+    Hpp = table_sum(torch.einsum("nri,nrj->nij", Jp, Jp).reshape(N, 36).T,
+                    tables.cam).reshape(n_cams, 6, 6)
+    Hll = table_sum(torch.einsum("nri,nrj->nij", Jl, Jl).reshape(N, 9).T,
+                    tables.lm).reshape(n_points, 3, 3)
+    gp = table_sum(torch.einsum("nri,nr->in", Jp, r), tables.cam)
+    gl = table_sum(torch.einsum("nri,nr->in", Jl, r), tables.lm)
+    W_obs = torch.einsum("nri,nrj->nij", Jp, Jl)
+    return Hpp, Hll, gp, gl, W_obs
+
+
+def _inv3x3(A):
+    """Closed-form inverse of (..., 3, 3) SPD blocks by the adjugate."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    rows = torch.stack([torch.stack([A11, A12, A13], dim=-1),
+                        torch.stack([A21, A22, A23], dim=-1),
+                        torch.stack([A31, A32, A33], dim=-1)], dim=-2)
+    return rows * (1.0 / det)[..., None, None]
+
+
+def _damp_blocks(H, lam):
+    """H + lam diag(max(diag H, 1e-12)) of batched diagonal blocks."""
+    d = torch.clamp_min(torch.diagonal(H, dim1=-2, dim2=-1), 1e-12)
+    return H + lam * torch.diag_embed(d)
+
+
+def _damp_hll(Hll, lam):
+    """Damped landmark blocks, an empty one (zero trace: no live
+    observation) replaced by the identity: its eps-damped zero block has
+    det ~ (lam 1e-12)^3, which underflows f32 to an inf inverse and 0 inf =
+    NaN in the solve. Its W and gl are zero, so the identity adds
+    nothing."""
+    tr = torch.einsum("lii->l", Hll)
+    eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
+    return torch.where((tr > 0)[:, None, None], _damp_blocks(Hll, lam),
+                       eye3[None])
+
+
+def _finish_and_solve_S(S, Hpp_d, b, fixed_mask):
+    """Add the damped pose blocks to the off-diagonal Schur mass S (C, 6,
+    C, 6), put identity rows and columns on the fixed cameras, and solve
+    with ``ops.spd_solve`` (the CUDA kernel on the card). Returns dp
+    (C, 6); NaN where S is not positive definite."""
+    dtype, device = b.dtype, b.device
+    C = b.shape[0]
+    ci = torch.arange(C, device=device)
+    S = S.clone()
+    S[ci, :, ci, :] += Hpp_d
+    free = (~fixed_mask).to(dtype)
+    S = S * free[:, None, None, None] * free[None, None, :, None]
+    S[ci, :, ci, :] += (fixed_mask.to(dtype)[:, None, None]
+                        * torch.eye(6, dtype=dtype, device=device))
+    b = b * free[:, None]
+    return spd_solve(S.reshape(6 * C, 6 * C),
+                     b.reshape(6 * C).contiguous()).reshape(C, 6)
+
+
+def lm_gain_update(cost_old, cost_try, lam, nu, dvec, gvec, diag_scaled, bad):
+    """``lm_accept`` with the model decrease from flat step, gradient and
+    Marquardt-diagonal vectors. Returns (accept, lam_new, nu_new)."""
+    pred = 0.5 * torch.dot(dvec, lam * diag_scaled * dvec - gvec)
+    return lm_accept(cost_old, cost_try, lam, nu, pred, bad)
+
+
+def _rhs(gp, gl, W_obs, Hll_inv, lm, cam_table):
+    """b = -(gp - W Hll^-1 gl), summed per camera."""
+    u = torch.einsum("lij,lj->li", Hll_inv, gl)
+    y = torch.einsum("nij,nj->in", W_obs, u[lm])
+    return -(gp - table_sum(y, cam_table))
+
+
+def _back_substitute(dp, W_obs, Hll_inv, gl, cam, lm_table):
+    """dl = Hll^-1 (-gl - Wᵀ dp), summed per landmark."""
+    t = table_sum(torch.einsum("nij,ni->jn", W_obs, dp[cam]), lm_table)
+    return torch.einsum("lij,lj->li", Hll_inv, -gl - t)
+
+
+def _schur_reduce(Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx, lam, n_cams,
+                  n_points, fixed_mask, tables=None):
+    """The reduced camera system from the whitened block matrix B (3L, 6C):
+    with Hll_d = Ld Ldᵀ, W Hll_d^-1 Wᵀ = BᵀB for B[l, c] = Ld^-1 W[c, l]ᵀ,
+    so S's off-diagonal mass is one matrix product; rhs and
+    back-substitution are sums over observations. `tables` needs its
+    block table. Returns (dp (C, 6), dl (L, 3))."""
+    if tables is None:
+        tables = obs_tables(cam_idx, lm_idx, n_cams, n_points, blocks=True)
+    C, L = n_cams, n_points
+    N = W_obs.shape[0]
+    cam, lm = cam_idx.long(), lm_idx.long()
+    Hpp_d = _damp_blocks(Hpp, lam)
+    Hll_d = _damp_hll(Hll, lam)
+    Hll_inv = _inv3x3(Hll_d)
+
+    Ld = cholesky_small(Hll_d)
+    X = solve_lower_small(Ld[lm], W_obs.mT)                        # (N, 3, 6)
+    B = table_sum(X.reshape(N, 18).T, tables.block)                # (L C, 18)
+    B = B.reshape(L, C, 3, 6).permute(0, 2, 1, 3).reshape(3 * L, 6 * C)
+    S_off = -(B.T @ B)
+
+    b = _rhs(gp, gl, W_obs, Hll_inv, lm, tables.cam)
+    dp = _finish_and_solve_S(S_off.view(C, 6, C, 6), Hpp_d, b, fixed_mask)
+    return dp, _back_substitute(dp, W_obs, Hll_inv, gl, cam, tables.lm)
+
+
+class TrackPairs(NamedTuple):
+    """The within-track observation pairs of the paired assembly, as the
+    JAX package lays them out: pair_a, pair_b index the observations;
+    pair_w is 1 for a < b, 0.5 for a == b (the M + Mᵀ symmetrization
+    counts them once) and 0 for padding; (n_chunks, chunk) each."""
+    pair_a: torch.Tensor    # int32
+    pair_b: torch.Tensor    # int32
+    pair_w: torch.Tensor    # dtype
+
+
+def build_track_pairs(cam_idx, lm_idx, *, chunk=65536, dtype=torch.float32,
+                      device=None):
+    """Every unordered within-track observation pair (a <= b with
+    lm[a] == lm[b]), host side in numpy, O(sum_l k_l² / 2), padded to a
+    multiple of `chunk`. Returns a TrackPairs on the observations' device
+    (a tensor's own, else `device`, the card unless the caller names
+    another)."""
+    if device is None and isinstance(cam_idx, torch.Tensor):
+        device = cam_idx.device
+    device = resolve(device)
+    lm_idx = np.asarray(lm_idx.cpu() if isinstance(lm_idx, torch.Tensor)
+                        else lm_idx)
+    order = np.argsort(lm_idx, kind="stable").astype(np.int32)
+    lm_sorted = lm_idx[order]
+    starts = np.flatnonzero(np.r_[True, lm_sorted[1:] != lm_sorted[:-1]])
+    ends = np.r_[starts[1:], lm_sorted.shape[0]]
+    lengths = ends - starts
+    # bucketed by track length (few distinct lengths)
+    a_list, b_list = [], []
+    for k in np.unique(lengths):
+        if k == 0:
+            continue
+        tr = np.flatnonzero(lengths == k)
+        M = order[starts[tr][:, None] + np.arange(k)[None, :]]
+        ii, jj = np.triu_indices(int(k))
+        a_list.append(M[:, ii].ravel())
+        b_list.append(M[:, jj].ravel())
+    pa = np.concatenate(a_list) if a_list else np.zeros(0, np.int32)
+    pb = np.concatenate(b_list) if b_list else np.zeros(0, np.int32)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    pw = np.where(pa == pb, 0.5, 1.0).astype(np_dtype)
+    n = pa.shape[0]
+    n_pad = -n % chunk
+    if n + n_pad == 0:
+        n_pad = chunk
+    pa = np.concatenate([pa, np.zeros(n_pad, np.int32)])
+    pb = np.concatenate([pb, np.zeros(n_pad, np.int32)])
+    pw = np.concatenate([pw, np.zeros(n_pad, np_dtype)])
+    t = lambda a: torch.as_tensor(a.reshape(-1, chunk), device=device)  # noqa: E731
+    return TrackPairs(pair_a=t(pa), pair_b=t(pb), pair_w=t(pw))
+
+
+class PairSegments(NamedTuple):
+    """The paired assembly's fixed summation order, built once a problem
+    from TrackPairs and the cameras: the live pairs (weight > 0) sorted
+    stably by their block (cam_a, cam_b) of M, each block's run cut into
+    segments of PAIR_SEGMENT pairs (padded with the index of a zero pair),
+    and each block summed from its segments by a ``sum_table``."""
+    pairs: torch.Tensor     # (n_seg, PAIR_SEGMENT) int64 flat pair ids
+    blocks: torch.Tensor    # (n_blocks,) int64 block ids cam_a C + cam_b
+    table: torch.Tensor     # (n_blocks, T) the segments of each block
+    chunk: int              # pairs computed at once
+
+
+def pair_segments(pairs: TrackPairs, cam_idx, n_cams):
+    """The PairSegments of `pairs` over observations on cameras cam_idx."""
+    seg = PAIR_SEGMENT
+    cam = cam_idx.long()
+    a, b = pairs.pair_a.reshape(-1).long(), pairs.pair_b.reshape(-1).long()
+    n = a.shape[0]
+    live = torch.nonzero(pairs.pair_w.reshape(-1) > 0).squeeze(1)
+    dest = cam[a[live]] * n_cams + cam[b[live]]
+    dest, order = torch.sort(dest, stable=True)
+    ids = live[order]
+    blocks, counts = torch.unique_consecutive(dest, return_counts=True)
+    per_block = (counts + seg - 1) // seg
+    seg_start = torch.cumsum(per_block, 0) - per_block
+    block_of = torch.repeat_interleave(
+        torch.arange(blocks.shape[0], device=cam.device), counts)
+    rank = (torch.arange(ids.shape[0], device=cam.device)
+            - (torch.cumsum(counts, 0) - counts)[block_of])
+    n_seg = int(per_block.sum())
+    flat = torch.full((n_seg * seg,), n, dtype=torch.int64, device=cam.device)
+    flat[seg_start[block_of] * seg + rank] = ids
+    seg_block = torch.repeat_interleave(
+        torch.arange(blocks.shape[0], device=cam.device), per_block)
+    return PairSegments(pairs=flat.view(n_seg, seg), blocks=blocks,
+                        table=sum_table(seg_block, blocks.shape[0]),
+                        chunk=pairs.pair_a.shape[1])
+
+
+def _paired_S_mass(Y, W_obs, pairs: TrackPairs, segs: PairSegments, n_cams):
+    """The unsymmetrized off-diagonal Schur mass M[cam_a, cam_b] = sum of
+    w Y[a] W[b]ᵀ over the within-track pairs, chunk by chunk (peak memory
+    O(chunk 36) whatever L), each block summed in the fixed order of
+    `segs`. Returns M (C, C, 6, 6); S_off = -(M + M^T_blocks)."""
+    C = n_cams
+    zero = torch.zeros(1, dtype=torch.int64, device=Y.device)
+    a_all = torch.cat([pairs.pair_a.reshape(-1).long(), zero])
+    b_all = torch.cat([pairs.pair_b.reshape(-1).long(), zero])
+    w_all = torch.cat([pairs.pair_w.reshape(-1).to(Y.dtype),
+                       Y.new_zeros(1)])
+    n_seg = segs.pairs.shape[0]
+    step = max(segs.chunk // PAIR_SEGMENT, 1)
+    partial = Y.new_empty((n_seg, 36))
+    for s0 in range(0, n_seg, step):
+        idx = segs.pairs[s0:s0 + step].reshape(-1)
+        w = w_all[idx]
+        blk = (Y[a_all[idx]][:, :, None, :]
+               * W_obs[b_all[idx]][:, None, :, :]).sum(-1) * w[:, None, None]
+        blk = torch.where((w > 0)[:, None, None], blk, 0.0)
+        partial[s0:s0 + step] = blk.reshape(-1, PAIR_SEGMENT, 36).sum(1)
+    M = Y.new_zeros((C * C, 36))
+    M[segs.blocks] = table_sum(partial.T, segs.table)
+    return M.view(C, C, 6, 6)
+
+
+def _schur_reduce_paired(Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx, lam,
+                         n_cams, n_points, fixed_mask, pairs: TrackPairs,
+                         tables=None, segs=None):
+    """The exact reduced camera system without the dense block matrix:
+    M[cam_a, cam_b] += w (W_a Hll_d^-1) W_bᵀ over each track's pairs
+    a <= b, S_off = -(M + M^T_blocks); compute O(sum_l k_l²), memory O(N).
+    Returns (dp (C, 6), dl (L, 3))."""
+    if tables is None:
+        tables = obs_tables(cam_idx, lm_idx, n_cams, n_points)
+    if segs is None:
+        segs = pair_segments(pairs, cam_idx, n_cams)
+    cam, lm = cam_idx.long(), lm_idx.long()
+    Hpp_d = _damp_blocks(Hpp, lam)
+    Hll_d = _damp_hll(Hll, lam)
+    Hll_inv = _inv3x3(Hll_d)
+
+    Y = torch.einsum("nij,njk->nik", W_obs, Hll_inv[lm])          # (N, 6, 3)
+    M = _paired_S_mass(Y, W_obs, pairs, segs, n_cams)
+    S_off = -(M + M.permute(1, 0, 3, 2)).permute(0, 2, 1, 3)      # (C,6,C,6)
+
+    b = _rhs(gp, gl, W_obs, Hll_inv, lm, tables.cam)
+    dp = _finish_and_solve_S(S_off, Hpp_d, b, fixed_mask)
+    return dp, _back_substitute(dp, W_obs, Hll_inv, gl, cam, tables.lm)
+
+
+def solve_ba(poses0, points0, obs, *, fixed_mask=None, max_iters=30,
+             lambda_init=1e-4, xtol=1e-12, gtol=0.0, linear_solver="dense",
+             cg_iters=100, cg_tol=1e-8, loss=None, callback=None,
+             track_pairs=None, band_pairs=None, track_table=None,
+             costs=None):
+    """LM bundle adjustment over the observation list `obs` (cam_idx,
+    lm_idx, uv, weight); the same iteration as the JAX package's
+    ``solve_ba``. Returns a BAState.
+
+    linear_solver: "dense" forms the reduced camera system exactly (small
+    and medium C); "pcg" runs matrix-free block-Jacobi PCG (with
+    `band_pairs=pcg.build_band_pairs(...)`, the block-tridiagonal
+    preconditioner); "paired" is the exact solve with O(N) memory, pass
+    `track_pairs=build_track_pairs(obs.cam_idx, obs.lm_idx)`; "tracks" takes
+    `track_table=build_track_table(obs.cam_idx, obs.lm_idx, obs.weight,
+    n_points=L)`, as the JAX package's does, and runs the dense solve. loss: a ``residuals.robust.Loss`` (IRLS: each
+    linearization scales the weights by weight(‖r‖²), the cost is
+    0.5 w rho(‖r‖²)) or None. gtol > 0 also stops after a step taken where
+    the gradient's largest magnitude was below gtol. callback(it, cost,
+    lam) after each step; `costs` as in ``lm_loop``."""
+    robust.check(loss)
+    if linear_solver not in ("dense", "paired", "tracks", "pcg"):
+        raise ValueError(f"unknown linear_solver {linear_solver!r}")
+    if linear_solver == "tracks" and track_table is None:
+        raise ValueError("linear_solver='tracks' requires track_table="
+                         "build_track_table(obs.cam_idx, obs.lm_idx, "
+                         "obs.weight, n_points=L)")
+    if linear_solver == "paired" and track_pairs is None:
+        raise ValueError("linear_solver='paired' requires track_pairs="
+                         "build_track_pairs(obs.cam_idx, obs.lm_idx)")
+    set_full_precision()
+    C, L = poses0.t.shape[0], points0.shape[0]
+    device = points0.device
+    cam_idx, lm_idx, uv, base_w = obs.cam_idx, obs.lm_idx, obs.uv, obs.weight
+    if fixed_mask is None:
+        fixed_mask = first_camera_fixed(C, device)
+    # every fixed summation order, before the loop
+    tables = obs_tables(cam_idx, lm_idx, C, L, base_w,
+                        blocks=linear_solver in ("dense", "tracks"))
+    segs = (pair_segments(track_pairs, cam_idx, C)
+            if linear_solver == "paired" else None)
+    if linear_solver == "pcg":
+        from slam_tricks_tpu_torch.solvers import pcg
+        btables = (None if band_pairs is None
+                   else pcg.band_tables(band_pairs, cam_idx, C))
+
+    def quantities(poses, points):
+        if loss is None:
+            w = base_w
+            cost = _cost(poses, points, cam_idx, lm_idx, uv, base_w)
+        else:
+            r = _residuals(poses, points, cam_idx, lm_idx, uv)
+            s = torch.sum(r * r, dim=1)
+            w = base_w * loss.weight(s)
+            cost = 0.5 * torch.sum(base_w * loss.rho(s))
+        r, Jp, Jl = _linearize_obs(poses, points, cam_idx, lm_idx, uv, w)
+        return _assemble(r, Jp, Jl, cam_idx, lm_idx, C, L, tables), cost
+
+    def solve(blocks, lam):
+        Hpp, Hll, gp, gl, W_obs = blocks
+        if linear_solver in ("dense", "tracks"):
+            dp, dl = _schur_reduce(Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx,
+                                   lam, C, L, fixed_mask, tables)
+        elif linear_solver == "paired":
+            dp, dl = _schur_reduce_paired(Hpp, Hll, gp, gl, W_obs, cam_idx,
+                                          lm_idx, lam, C, L, fixed_mask,
+                                          track_pairs, tables, segs)
+        else:
+            dp, dl = pcg.solve_rcs_pcg(
+                Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx, lam, fixed_mask, L,
+                cg_iters=cg_iters, cg_tol=cg_tol, band_pairs=band_pairs,
+                tables=tables, band_tables=btables)
+        diag_pp = torch.clamp_min(torch.diagonal(Hpp, dim1=-2, dim2=-1), 1e-12)
+        diag_ll = torch.clamp_min(torch.diagonal(Hll, dim1=-2, dim2=-1), 1e-12)
+        return dp, dl, diag_pp, diag_ll
+
+    return lm_loop(poses0, points0, quantities, solve, max_iters=max_iters,
+                   lambda_init=lambda_init, xtol=xtol, gtol=gtol,
+                   costs=costs, callback=callback,
+                   grads=lambda blocks: (blocks[2], blocks[3]))

@@ -51,8 +51,10 @@ class SlotWork(NamedTuple):
     mask: torch.Tensor          # (K, L) 1/0
     cam_of_slot: torch.Tensor   # (K, L) int32, camera 0 on padding slots
     cam_index: Optional[CameraIndex]  # the kernel's sums; None on the CPU
-    b_table: torch.Tensor       # (L C, T) the slots of each (landmark,
-    #                             camera) block of B: ``slot_tables``
+    b_table: Optional[torch.Tensor]  # (L C, T) the slots of each
+    #                             (landmark, camera) block of B:
+    #                             ``slot_tables``; None: left out
+    #                             (``with_b_table`` adds it)
     cam_table: torch.Tensor     # (C, T) the slots of each camera
     n_cams: int
 
@@ -61,36 +63,67 @@ class SlotWork(NamedTuple):
         return self.mask.shape[1]
 
 
-def slot_tables(cam_of_slot, mask, n_cams):
+def slot_tables(cam_of_slot, mask, n_cams, with_b_table=True):
     """(b_table, cam_table): the ``common.sum_table`` orders of the live
     slots n = k L + l (mask > 0) into row l C + cam of B and into their
-    camera. b_table has one column unless a landmark has two live slots of
-    one camera; padding slots add exact zeros, so they are left out."""
+    camera (b_table None unless with_b_table). b_table has one column
+    unless a landmark has two live slots of one camera; padding slots add
+    exact zeros, so they are left out."""
     K, L = mask.shape
     cam = cam_of_slot.long().reshape(-1)
     live = mask.reshape(-1) > 0
-    lm = torch.arange(L, device=cam.device).repeat(K)
     none = torch.full_like(cam, -1)
-    return (sum_table(torch.where(live, lm * n_cams + cam, none),
-                      L * n_cams),
-            sum_table(torch.where(live, cam, none), n_cams))
+    b_table = None
+    if with_b_table:
+        lm = torch.arange(L, device=cam.device).repeat(K)
+        b_table = sum_table(torch.where(live, lm * n_cams + cam, none),
+                            L * n_cams)
+    return b_table, sum_table(torch.where(live, cam, none), n_cams)
 
 
-def build_slot_work(obs, n_cams, n_points, dtype=torch.float32):
+def with_b_table(work: SlotWork):
+    """`work` with B's (L C)-row table, built here if it was left out: once
+    a problem, before a dense solve's loop."""
+    if work.b_table is not None:
+        return work
+    return work._replace(b_table=slot_tables(work.cam_of_slot, work.mask,
+                                             work.n_cams)[0])
+
+
+def build_slot_work(obs, n_cams, n_points, dtype=torch.float32,
+                    use_onehot=None):
     """Host side: the slot-major grid of arbitrary observations, on the
     observations' device. The slots of landmark l are its observations in
-    input order; padding slots carry weight 0 and camera 0."""
+    input order; padding slots carry weight 0 and camera 0.
+
+    use_onehot is accepted for calls written against the JAX package, where
+    it picks between a bf16 camera one-hot and a camera gather table; the
+    port never builds a one-hot, so every C takes the gather route (the JAX
+    package's use_onehot=False)."""
+    del use_onehot
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    table = build_track_table(obs.cam_idx.cpu().numpy(),
+                              obs.lm_idx.cpu().numpy(),
+                              obs.weight.cpu().numpy().astype(np.float64),
+                              n_points=n_points, dtype=np_dtype)
+    return slot_work_from_table(obs, table, n_cams, dtype)
+
+
+def slot_work_from_table(obs, table, n_cams, dtype=torch.float32,
+                         with_b_table=True):
+    """The SlotWork of observations laid out by their track table
+    (``schur.build_track_table``, numpy): slot k of landmark l holds
+    observation table.obs_idx[l, k] where table.mask is 1. with_b_table
+    False leaves out B's (L C)-row table, which only a dense solve needs
+    (``with_b_table``)."""
     device = obs.uv.device
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     cam_np = obs.cam_idx.cpu().numpy()
     w_np = obs.weight.cpu().numpy().astype(np.float64)
     uv_np = obs.uv.cpu().numpy()
-    L = n_points
-    table = build_track_table(cam_np, obs.lm_idx.cpu().numpy(), w_np,
-                              n_points=L, dtype=np_dtype)
-    idx = table.obs_idx                  # (L, K)
-    msk = table.mask > 0
-    K = idx.shape[1]
+    idx = np.asarray(table.obs_idx)      # (L, K)
+    msk = np.asarray(table.mask) > 0
+    L, K = idx.shape
 
     def slotm(a):
         out = np.zeros((L, K) + a.shape[1:], a.dtype)
@@ -103,7 +136,7 @@ def build_slot_work(obs, n_cams, n_points, dtype=torch.float32):
     cam_sm = slotm(cam_np.astype(np.int32))
     mask = torch.as_tensor(np.ascontiguousarray(msk.T.astype(np_dtype)),
                            device=device)
-    b_table, cam_table = slot_tables(cam_sm, mask, n_cams)
+    b_table, cam_table = slot_tables(cam_sm, mask, n_cams, with_b_table)
     return SlotWork(
         uv0=uv_sm[..., 0].contiguous(), uv1=uv_sm[..., 1].contiguous(),
         w=w_sm, mask=mask, cam_of_slot=cam_sm,
@@ -195,6 +228,9 @@ def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
 
     # B[(l, r), (c, i)] = sum of X[r*6 + i, k, l] over the slots k of l with
     # camera c; S = Hpp_d - BᵀB
+    if work.b_table is None:
+        raise ValueError("the slot work was built without B's table: pass "
+                         "schur_flat_sm.with_b_table(work)")
     Bl = table_sum(X.reshape(18, K * L), work.b_table)           # (L C, 18)
     B = Bl.view(L, C, 3, 6).permute(0, 2, 1, 3).reshape(3 * L, 6 * C)
     S = (-(B.T @ B)).view(C, 6, C, 6)
@@ -219,16 +255,10 @@ def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
     return S.reshape(6 * C, 6 * C), b.reshape(6 * C), Hll_inv, dpp, dll
 
 
-def _solve_sm(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: SlotWork):
-    """Damped Schur solve from slot-major blocks. Returns (dp (C, 6),
-    dl (L, 3), diag_pp (C, 6), diag_ll (L, 3))."""
-    C, L = work.n_cams, work.n_points
-    K = work.mask.shape[0]
-    S, b, Hll_inv, dpp, dll = reduced_camera_system(Hpp, gp, Hll, gl, W, lam,
-                                                    fixed_mask, work)
-    dp = spd_solve(S, b).reshape(C, 6)
-
-    # back-substitution: dl = Hll^-1 (-gl - Wᵀ dp), dp gathered per slot
+def back_substitute(dp, W, Hll_inv, gl, work: SlotWork):
+    """The landmark steps dl = Hll^-1 (-gl - Wᵀ dp) (L, 3), dp gathered per
+    slot and summed over each landmark's slots."""
+    K, L = work.mask.shape
     a_, b_, c_, d_, e_, f_ = Hll_inv
     m = work.mask
     W3 = W.view(6, 3, K, L)
@@ -241,8 +271,16 @@ def _solve_sm(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: SlotWork):
     dl0 = a_ * rhs[0] + b_ * rhs[1] + c_ * rhs[2]
     dl1 = b_ * rhs[0] + d_ * rhs[1] + e_ * rhs[2]
     dl2 = c_ * rhs[0] + e_ * rhs[1] + f_ * rhs[2]
-    dl = torch.stack([dl0, dl1, dl2], dim=1)                      # (L, 3)
-    return dp, dl, dpp, dll.T
+    return torch.stack([dl0, dl1, dl2], dim=1)
+
+
+def _solve_sm(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: SlotWork):
+    """Damped Schur solve from slot-major blocks. Returns (dp (C, 6),
+    dl (L, 3), diag_pp (C, 6), diag_ll (L, 3))."""
+    S, b, Hll_inv, dpp, dll = reduced_camera_system(Hpp, gp, Hll, gl, W, lam,
+                                                    fixed_mask, work)
+    dp = spd_solve(S, b).reshape(work.n_cams, 6)
+    return dp, back_substitute(dp, W, Hll_inv, gl, work), dpp, dll.T
 
 
 def solve_ba_flat_sm(poses0, points0, work: SlotWork, *, fixed_mask=None,

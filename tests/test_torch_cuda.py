@@ -16,9 +16,11 @@ same cyclic reduction, sums in another order); ba_assemble with each robust
 loss as without one;
 undistort 2.5e-4 px in f32 (a few ulp at 700 px: the kernel's steps are
 fused multiply-adds with an approximate reciprocal of the determinant) and
-1e-9 px in f64; the f64 solves (paths A, B, the loop-closure solve and the
-incremental stream) to 1e-8 in the poses, as against JAX; two f32 solves of
-paths A and B give the same bits."""
+1e-9 px in f64; the f64 solves (paths A, B, the loop-closure solve, the
+incremental stream, schur.solve_ba dense and paired, schur_flat dense and
+PCG, and a sliding-window shift) to 1e-8 in the poses, as against JAX; two
+f32 solves of paths A and B give the same bits; ba_assemble at the large-C
+grid (1024 cameras, K = 464) as above, and spd_solve at n = 6144."""
 
 import numpy as np
 import pytest
@@ -30,7 +32,9 @@ from slam_tricks_tpu_torch.residuals import robust
 from slam_tricks_tpu_torch.sim import (make_loop_scene, make_scene,
                                        make_trajectory_scene, perturb_scene)
 from slam_tricks_tpu_torch.solvers import (banded_flat, incremental,
-                                           loop_flat, schur_flat_sm)
+                                           loop_flat, pcg_flat, schur,
+                                           schur_flat, schur_flat_sm,
+                                           sliding_window)
 
 pytestmark = pytest.mark.cuda
 
@@ -200,12 +204,15 @@ def _spd_system(n, dtype, device):
 
 
 # 577 = 18 * 32 + 1 leaves a ragged last tile of one row; 1 and 31 are one
-# ragged tile; 300 in f64 is ragged too
+# ragged tile; 300 in f64 is ragged too; 6144 is the reduced camera system
+# of 1024 cameras (schur.solve_ba's paired comparator, schur_flat_sm at
+# large C)
 @pytest.mark.parametrize("n, dtype, tol", [
     (36, torch.float32, 5e-6), (200, torch.float32, 5e-6),
     (576, torch.float32, 5e-6), (577, torch.float32, 5e-6),
     (1, torch.float32, 5e-6), (31, torch.float32, 5e-6),
-    (300, torch.float64, 1e-9), (577, torch.float64, 1e-9)])
+    (300, torch.float64, 1e-9), (577, torch.float64, 1e-9),
+    (6144, torch.float32, 5e-6)])
 def test_spd_solve_kernel_matches_plain(n, dtype, tol):
     dev = require_cuda()
     S, b = _spd_system(n, dtype, dev)
@@ -535,3 +542,107 @@ def test_stream_on_cuda_matches_cpu():
     np.testing.assert_allclose(out.poses.t.cpu().numpy(), ref.poses.t.numpy(),
                                rtol=0, atol=1e-8)
     np.testing.assert_allclose(float(out.cost), float(ref.cost), rtol=1e-7)
+
+
+def test_ba_assemble_kernel_at_large_c_shapes():
+    """The slot grid of schur_flat_sm at large C (bench.py's large-C scene:
+    1024 cameras, 7200 landmarks, K = 464 slots a landmark, ~2,600 live
+    slots a camera), f32: against plain to 1e-4, and two launches bitwise
+    equal."""
+    dev = require_cuda()
+    sc = make_scene(n_per_wall=1200, n_cams=1024, seed=5,
+                    dtype=torch.float32, device=dev)
+    p0, x0, _ = perturb_scene(sc, 0.002, 0.01, 0.01, seed=6)
+    work = schur_flat_sm.build_slot_work(sc.obs, sc.n_cams, sc.n_points)
+    args = (p0.R.reshape(sc.n_cams, 9), p0.t, x0, work.uv0, work.uv1,
+            work.w, work.cam_of_slot)
+    ref = ba_assemble.linearize_assemble_plain(*args)
+    one = ba_assemble.linearize_assemble(*args, work.cam_index)
+    two = ba_assemble.linearize_assemble(*args, work.cam_index)
+    for name, a, b, c in zip(_ASSEMBLE_OUT, one, ref, two):
+        assert rel_err(a, b) < 1e-4, (name, rel_err(a, b))
+        assert torch.equal(a, c), name
+
+
+def _small_scene(device, seed=3):
+    sc = make_scene(n_per_wall=10, n_cams=6, seed=seed, pix_noise=1e-3,
+                    dtype=torch.float64, device=device)
+    return sc, perturb_scene(sc, seed=seed + 6)
+
+
+@pytest.mark.parametrize("solver", ["dense", "paired"])
+def test_solve_ba_on_cuda_matches_cpu(solver):
+    """schur.solve_ba through spd_solve on the card against the CPU path,
+    f64, to 1e-8 in the poses."""
+    dev = require_cuda()
+    out = []
+    for device in ("cpu", dev):
+        sc, (p0, x0, fx) = _small_scene(device)
+        kw = {}
+        if solver == "paired":
+            kw["track_pairs"] = schur.build_track_pairs(
+                sc.obs.cam_idx, sc.obs.lm_idx, chunk=257, dtype=torch.float64)
+        before = spd_solve.LAUNCHES
+        out.append(schur.solve_ba(p0, x0, sc.obs, fixed_mask=fx,
+                                  max_iters=10, linear_solver=solver, **kw))
+    assert spd_solve.LAUNCHES == before + out[1].it
+    ref, got = out
+    assert got.it == ref.it
+    np.testing.assert_allclose(got.poses.t.cpu().numpy(), ref.poses.t.numpy(),
+                               rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("linear", ["dense", "pcg"])
+def test_solve_ba_flat_on_cuda_matches_cpu(linear):
+    """schur_flat.solve_ba_flat through ba_assemble (and spd_solve, dense)
+    on the card against the CPU path, f64, 32-camera trajectory, to 1e-8
+    in the poses."""
+    dev = require_cuda()
+    out = []
+    for device in ("cpu", dev):
+        sc = make_trajectory_scene(n_cams=32, n_points=500, track_len=6,
+                                   seed=2, pix_noise=1e-3,
+                                   dtype=torch.float64, device=device)
+        p0, x0, fx = perturb_scene(sc, pose_rot_noise=0.002,
+                                   pose_trans_noise=0.01, point_noise=0.01,
+                                   seed=3)
+        work = schur_flat.build_flat_work(sc.obs, sc.n_cams, sc.n_points,
+                                          dtype=torch.float64)
+        kw = {}
+        if linear == "pcg":
+            kw = dict(pcg_work=pcg_flat.build_pcg_work(
+                sc.obs, sc.n_cams, dtype=torch.float64,
+                n_points=sc.n_points), cg_iters=400, cg_tol=1e-10)
+        before = ba_assemble.LAUNCHES
+        out.append(schur_flat.solve_ba_flat(p0, x0, sc.obs, work,
+                                            fixed_mask=fx, max_iters=6,
+                                            linear=linear, **kw))
+    assert ba_assemble.LAUNCHES == before + out[1].it + 1
+    ref, got = out
+    assert got.it == ref.it
+    np.testing.assert_allclose(got.poses.t.cpu().numpy(), ref.poses.t.numpy(),
+                               rtol=0, atol=1e-8)
+
+
+def test_sliding_window_shift_on_cuda_matches_cpu():
+    """Two windows and the marginalization between them, through the
+    kernels on the card, against the CPU path, f64 (noiseless, so that the
+    windows converge), to 1e-8 in the poses and points."""
+    dev = require_cuda()
+    out = []
+    for device in ("cpu", dev):
+        sc = make_trajectory_scene(n_cams=18, n_points=400, track_len=5,
+                                   seed=97, dtype=torch.float64,
+                                   device=device)
+        p0, x0, _ = perturb_scene(sc, pose_rot_noise=0.002,
+                                  pose_trans_noise=0.01, point_noise=0.01,
+                                  seed=98)
+        out.append(sliding_window.run_sliding_window(
+            sc.obs, p0, x0, window=12, shift=6, na=3, max_iters=8))
+    (rp, rx, rd), (gp, gx, gd) = out
+    assert len(gd) == len(rd) == 2
+    assert [d["it"] for d in gd] == [d["it"] for d in rd]
+    np.testing.assert_allclose(gp.t.cpu().numpy(), rp.t.numpy(), rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(gx.cpu().numpy(), rx.numpy(), rtol=0,
+                               atol=1e-8)

@@ -135,3 +135,43 @@ def test_import_leaves_jax_out():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
+
+
+def test_large_c_matches_jax_gather_branch():
+    """C > 128, where the JAX package's build_slot_work switches to its
+    camera gather table (use_onehot=False): the port, which gathers at
+    every C and takes use_onehot= for the JAX call shape, against that
+    branch, f64: the first step to 1e-8 relative and 3 LM iterations as in
+    test_solve_matches_jax."""
+    kw = dict(n_per_wall=30, n_cams=136, seed=5, pix_noise=1e-3)
+    jsc = jmake_scene(dtype=np.float64, **kw)
+    jp0, jx0, jfx = jperturb_scene(jsc, 0.002, 0.01, 0.01, seed=6)
+    jwork = jsm.build_slot_work(jsc.obs, jsc.n_cams, jsc.n_points,
+                                dtype=np.float64, use_onehot=False)
+    assert jwork.cam_table is not None
+    sc = make_scene(dtype=torch.float64, device="cpu", **kw)
+    p0, x0, fx = perturb_scene(sc, 0.002, 0.01, 0.01, seed=6)
+    work = schur_flat_sm.build_slot_work(sc.obs, sc.n_cams, sc.n_points,
+                                         dtype=torch.float64,
+                                         use_onehot=False)
+    C = work.n_cams
+    jb = jsm._quantities_sm(jp0, jx0, jwork)
+    ref = jsm._solve_sm(jb[0], jb[1], list(jb[2]), list(jb[3]), jb[4],
+                        jnp.asarray(1e-4), jfx, jwork)
+    Hpp, gp, Hll, gl, W, _ = linearize_assemble_plain(
+        p0.R.reshape(C, 9), p0.t, x0, work.uv0, work.uv1, work.w,
+        work.cam_of_slot)
+    out = schur_flat_sm._solve_sm(Hpp, gp, Hll, gl, W,
+                                  torch.tensor(1e-4, dtype=torch.float64),
+                                  fx, work)
+    for name, a, b in zip(("dp", "dl"), out, ref):
+        assert rel_err(a, b) < 1e-8, (name, rel_err(a, b))
+    jfinal = jsm.solve_ba_flat_sm(jp0, jx0, jwork, fixed_mask=jfx,
+                                  max_iters=3)
+    final = schur_flat_sm.solve_ba_flat_sm(p0, x0, work, fixed_mask=fx,
+                                           max_iters=3)
+    assert final.it == int(jfinal.it)
+    np.testing.assert_allclose(float(final.cost), float(jfinal.cost),
+                               rtol=1e-6)
+    np.testing.assert_allclose(final.poses.t.numpy(),
+                               np.asarray(jfinal.poses.t), rtol=0, atol=1e-8)
