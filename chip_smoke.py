@@ -47,6 +47,16 @@ through the kernels, each with every launch count set to 0 just before it:
   bits; spd_solve at n = 6144 (paths D's and G's systems) against plain;
 - V on 20- and 64-camera trajectories in float64: the dense covariances
   against banded_flat's (gated on 20 cameras, reported on 64);
+- the pose graphs, each twice where it must give the same bits: Q, the
+  dense SE(3) solve (make_pose_graph(n=40, odo_noise=0.03,
+  meas_noise=0.003, seed=2), 50 iterations, float32 and float64, n =
+  240); T, the chain solver (the 2048-pose circle graph with 16 loops,
+  seed 1, float64, 20 iterations, a capacitance of q = 96); R, the
+  relative-state solver, on the same graph in float32 (held to T) and on
+  bench.py's 10,000-pose graph (64 loops, seed 17, made in float32 as the
+  bench makes it, 80 iterations, q = 384); S, the Sim(3) scale-drift graph of bench.py (96 keyframes, 6
+  loops, float32, 40 iterations, n = 672); spd_solve against plain on
+  each path's first system in float32 and float64;
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -59,7 +69,7 @@ earlier run; `device_ms` on the card alone, its calls queued behind a head
 start of matrix products) and bound, each phase's ms per LM iteration,
 iterations, final cost and launches, the card's name and power limit from
 nvidia-smi, and last the JSON status line. With --profile DIR it also writes
-torch.profiler tables of paths A, B, L, D and G to DIR.
+torch.profiler tables of paths A, B, L, D, G and R to DIR.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -202,17 +212,18 @@ def _check_costs(c, max_final, label):
 
 def check_same_bits(one, two, label):
     """Two solves of one problem must give the same bits in the final cost,
-    rotations, translations and points."""
+    every pose field and, where the state has them, the points."""
     import torch
 
-    for name, a, b in (("cost", one.cost, two.cost),
-                       ("rotations", one.poses.R, two.poses.R),
-                       ("translations", one.poses.t, two.poses.t),
-                       ("points", one.points, two.points)):
+    fields = [("cost", one.cost, two.cost),
+              *zip(one.poses._fields, one.poses, two.poses)]
+    if hasattr(one, "points"):
+        fields.append(("points", one.points, two.points))
+    for name, a, b in fields:
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: two runs differ in the {name}")
     _log(label, f"a second run: the same bits in the cost ({float(two.cost)!r}"
-                f"), rotations, translations and points")
+                f") and {', '.join(name for name, *_ in fields[1:])}")
 
 
 def captured_calls(targets, fn):
@@ -296,10 +307,304 @@ def _profile(fn, path, label):
     _log("profile", f"{label}: {path}")
 
 
+# ---- slice C: the pose graphs (paths Q, T, R and S) ----
+
+PG_Q = dict(n=40, odo_noise=0.03, meas_noise=0.003, seed=2)   # tests/
+#                             test_posegraph_calib.py:32, 50 iterations
+PG_T = dict(N=2048, n_loops=16, seed=1, odo_noise=0.01, loop_noise=0.001)
+#                             tests/test_posegraph_chain.py:146-158, f64
+PG_R = dict(N=10_000, n_loops=64, seed=17, odo_noise=0.002,
+            loop_noise=0.0005)  # bench.py:1220-1268, f32, up to 80
+PG_S = dict(N=96, n_loops=6, ds=0.004, seed=12)   # bench.py:719-771, f32
+PG_ATE_RATIO = 0.25         # Q and R: ATE below this x the start's
+#                             (tests/test_posegraph_chain.py:113)
+PG_R_VS_T_COST_RTOL = 1e-2  # R (f32) against T (f64) at N = 2048, and the
+PG_R_VS_T_ATE_REL = 0.01    # ATEs within 1% (test_posegraph_chain.py:164)
+PG_S_SCALE_ERR = 0.06       # S: max |s / s_true - 1| and the ATE below
+PG_S_ATE_RATIO = 0.2        # 0.2 x the start's (tests/test_sim3.py:223)
+
+
+def _rmse(t, t_true):
+    """The chain tests' and bench's ATE: the RMS over all coordinates."""
+    return float(((t.double() - t_true) ** 2).mean().sqrt())
+
+
+def _dot3(A, B):
+    """A @ B over the last two axes (inner size 3), numpy, in A's dtype. A
+    float32 product is rounded as XLA rounds it on the CPU, where
+    bench.py and tests/test_posegraph_chain.py make their graphs: the first
+    product, then two fused multiply-adds (a product of two float32 numbers
+    is exact in float64). With torch's unfused float32 products the
+    rounding of the measured rotations is biased, and the start, which
+    composes them, drifts off orthonormal eight times as far as the
+    bench's (tools/posegraph_f32_start.py), where the relative solvers of
+    both packages stall."""
+    import numpy as np
+
+    if A.dtype == np.float64:
+        return A @ B
+    A, B = A.astype(np.float64), B.astype(np.float64)
+    acc = (A[..., :, 0, None] * B[..., None, 0, :]).astype(np.float32)
+    for k in (1, 2):
+        acc = (A[..., :, k, None] * B[..., None, k, :] + acc).astype(
+            np.float32)
+    return acc
+
+
+def circle_graph(N, n_loops, seed, odo_noise, loop_noise, dtype, device):
+    """The circle pose graph of tests/test_posegraph_chain.py::make_graph
+    and bench.py:stage_posegraph, made as they make it, on the host: an
+    odometry chain and loops from the first to the last quarter; the truth
+    and the measurements in `dtype` (numpy's), each measurement the truth
+    perturbed by exp(xi), xi drawn from default_rng(seed) in their order;
+    the start the odometry integrated in float64 from those measurements
+    and cast. A float32 graph matches the JAX package's to within an ulp
+    (tests/test_torch_posegraph_relative.py). Returns (true translations
+    (N, 3) float64, poses0, i, j, Z, sqrt_info), tensors on `device`."""
+    import numpy as np
+    import torch
+
+    from slam_tricks_tpu_torch.manifolds import se3, so3
+
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(N) / N
+    t_true = np.stack([10 * np.cos(ang), 10 * np.sin(ang),
+                       0.1 * np.sin(3 * ang)], 1)
+    Rt = np.stack([np.array([[np.cos(a), -np.sin(a), 0],
+                             [np.sin(a), np.cos(a), 0],
+                             [0, 0, 1]]) for a in ang])
+    ii = np.concatenate([np.arange(N - 1), rng.integers(0, N // 4, n_loops)])
+    jj = np.concatenate([np.arange(1, N),
+                         rng.integers(3 * N // 4, N, n_loops)])
+    E = ii.size
+    R, t = Rt.astype(dtype), t_true.astype(dtype)
+    mv = lambda A, v: _dot3(A, v[..., None])[..., 0]  # noqa: E731
+    RiT = np.swapaxes(R[ii], -1, -2)                # Zc = Ti^-1 Tj
+    ZcR, Zct = _dot3(RiT, R[jj]), mv(RiT, t[jj]) + -mv(RiT, t[ii])
+    scale = np.where(np.arange(E) < N - 1, odo_noise, loop_noise)
+    xi = (rng.normal(size=(E, 6)) * scale[:, None]).astype(dtype)
+    w = torch.from_numpy(xi[:, 3:])                 # exp(xi), on the host
+    ER, Et = so3.exp(w).numpy(), mv(so3.jl(w).numpy(), xi[:, :3])
+    ZR, Zt = _dot3(ZcR, ER), mv(ZcR, Et) + Zct     # Z = Zc exp(xi)
+    Zr, Zt64 = ZR.astype(np.float64), Zt.astype(np.float64)
+    R0, t0 = [Rt[0]], [t_true[0]]
+    for k in range(N - 1):
+        R0.append(R0[-1] @ Zr[k])
+        t0.append(R0[-2] @ Zt64[k] + t0[-1])
+    T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    info = torch.eye(6, dtype=T(xi).dtype, device=device).expand(E, 6, 6)
+    return (T(t_true), se3.SE3(T(np.stack(R0).astype(dtype)),
+                               T(np.stack(t0).astype(dtype))),
+            T(ii), T(jj), se3.SE3(T(ZR), T(Zt)), info)
+
+
+def mono_sim3_graph(N, n_loops, ds, seed, device):
+    """bench.py:_sim3_pgo's scale-drift graph, f32: a circle whose
+    keyframes carry the drifting scale e^{-ds i}, Sim(3) odometry with
+    1e-3 noise on all 7 axes, exact loops (information x10), the start the
+    odometry's (R, t) integrated with s = 1. Returns (true translations
+    (N, 3) float64, true scales (N,) float64, poses0, i, j, Z,
+    sqrt_info)."""
+    import numpy as np
+    import torch
+
+    from slam_tricks_tpu_torch.manifolds import sim3
+
+    r2 = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(N) / N
+    tt = np.stack([10 * np.cos(ang), 10 * np.sin(ang),
+                   0.1 * np.sin(3 * ang)], 1).astype(np.float32)
+    Rt = np.stack([np.array([[np.cos(a), -np.sin(a), 0],
+                             [np.sin(a), np.cos(a), 0],
+                             [0, 0, 1]]) for a in ang]).astype(np.float32)
+    p = np.exp(-ds * np.arange(N)).astype(np.float32)
+    T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    gt = sim3.Sim3(T(Rt), T(tt), T(p))
+    ii = np.concatenate([np.arange(N - 1), r2.integers(0, N // 4, n_loops)])
+    jj = np.concatenate([np.arange(1, N), r2.integers(3 * N // 4, N, n_loops)])
+    i_t, j_t = T(ii), T(jj)
+    Zc = sim3.mul(sim3.inv(sim3.Sim3(*(a[i_t] for a in gt))),
+                  sim3.Sim3(*(a[j_t] for a in gt)))
+    xi = (r2.normal(size=(ii.size, 7)) * 1e-3).astype(np.float32)
+    xi[N - 1:] = 0.0
+    Z = sim3.mul(Zc, sim3.exp(T(xi)))
+    info = np.broadcast_to(np.eye(7, dtype=np.float32),
+                           (ii.size, 7, 7)).copy()
+    info[N - 1:] *= 10.0
+    Rz, tz = Z.R.double().cpu().numpy(), Z.t.double().cpu().numpy()
+    R0, t0 = [Rt[0].astype(np.float64)], [tt[0].astype(np.float64)]
+    for k in range(N - 1):
+        t0.append(R0[-1] @ tz[k] + t0[-1])
+        R0.append(R0[-1] @ Rz[k])
+    poses0 = sim3.Sim3(T(np.stack(R0).astype(np.float32)),
+                       T(np.stack(t0).astype(np.float32)),
+                       torch.ones(N, dtype=torch.float32, device=device))
+    return (T(tt.astype(np.float64)), T(p.astype(np.float64)), poses0, i_t,
+            j_t, Z, T(info))
+
+
+def posegraph_paths(dev, run_phase, check_spd, phases, profile_dir=None):
+    """Paths Q, T, R (N = 2048 and the bench's 10,000) and S through the
+    port's pose-graph solvers, each run with every launch count set to 0
+    just before it (run_phase) and gated; spd_solve held against plain
+    (check_spd) on each path's first system, in float32 and float64.
+    Returns {label: check_spd's dict}."""
+    import numpy as np
+    import torch
+
+    from slam_tricks_tpu_torch.evaluation import metrics
+    from slam_tricks_tpu_torch.sim import make_pose_graph
+    from slam_tricks_tpu_torch.solvers import posegraph, posegraph_sim3
+
+    f32, f64 = torch.float32, torch.float64
+    systems, k2 = {}, {}
+
+    def first_system(fn):
+        """The (S, b) of the first spd_solve call of fn."""
+        (calls,) = captured_calls([(posegraph, "spd_solve")], fn)
+        return calls[0]
+
+    def gate_run(label, out, cf, launches, ms, extra):
+        """Costs finite and non-increasing, below the start; one spd_solve
+        launch an LM iteration; the phase's record."""
+        _check_costs(cf, cf[0], label)
+        if launches["spd_solve"] != out.it:
+            raise AssertionError(f"{label}: {launches['spd_solve']} spd_solve "
+                                 f"launches in {out.it} iterations")
+        if not all(torch.isfinite(a).all() for a in out.poses):
+            raise AssertionError(f"{label} returned non-finite poses")
+        phases[label.replace("path ", "").replace(" ", "_")] = {
+            "ms_per_lm_iter": ms, "iters": out.it, "final_cost": cf[-1],
+            "launches": launches, **extra}
+
+    # ---- Q: the dense SE(3) solve, f32 and f64 (n = 240) ----
+    for dtype in (f32, f64):
+        name = str(dtype).rsplit(".", 1)[1]
+        label = f"path Q {name}"
+        prob = make_pose_graph(dtype=dtype, device=dev, **PG_Q)
+        solve = lambda costs=None: posegraph.solve_pose_graph(  # noqa: E731
+            prob.poses_init, prob.i_idx, prob.j_idx, prob.Z,
+            fixed_mask=prob.fixed_mask, max_iters=50, costs=costs)
+        out, cf, launches, ms = run_phase(label, solve)
+        ate0 = float(metrics.ate_translation_rmse(prob.poses_init,
+                                                  prob.poses_true))
+        ate = float(metrics.ate_translation_rmse(out.poses, prob.poses_true))
+        _log(label, f"40 poses, {prob.i_idx.shape[0]} edges: ATE {ate0:.6e} "
+                    f"-> {ate:.6e} (gate < {PG_ATE_RATIO} x start)")
+        if not ate < PG_ATE_RATIO * ate0:
+            raise AssertionError(f"{label}: ATE {ate} vs start {ate0}")
+        gate_run(label, out, cf, launches, ms, {"ate": ate, "ate_start": ate0})
+        check_same_bits(out, solve(), label)
+        systems.setdefault("Q_n240", {})[dtype] = first_system(
+            lambda: posegraph.solve_pose_graph(
+                prob.poses_init, prob.i_idx, prob.j_idx, prob.Z,
+                fixed_mask=prob.fixed_mask, max_iters=1))
+
+    # ---- T: the chain solver, f64, N = 2048 (q = 96) ----
+    t_true, p0, ii, jj, Z, info = circle_graph(dtype=np.float64,
+                                               device=dev, **PG_T)
+    N = PG_T["N"]
+    work64 = posegraph.build_chain_work(ii, jj, Z, info, N, dtype=f64,
+                                        device=dev)
+    out_t, cf, launches, ms = run_phase(
+        "path T", lambda costs: posegraph.solve_pose_graph_chain(
+            p0, work64, max_iters=20, costs=costs))
+    ate0_t, ate_t = _rmse(p0.t, t_true), _rmse(out_t.poses.t, t_true)
+    _log("path T", f"{N} poses, {PG_T['n_loops']} loops (q = "
+                   f"{6 * work64.loop_i.shape[0]}): ATE {ate0_t:.6e} -> "
+                   f"{ate_t:.6e}; the stored factor a Python loop over "
+                   f"{N} blocks an iteration")
+    gate_run("path T", out_t, cf, launches, ms,
+             {"ate": ate_t, "ate_start": ate0_t})
+    systems["T_q96"] = {f64: first_system(
+        lambda: posegraph.solve_pose_graph_chain(p0, work64, max_iters=1))}
+
+    # ---- R at N = 2048: T's graph cast to f32, against T, as
+    # tests/test_posegraph_chain.py:146-169 holds the two ----
+    work32 = posegraph.build_chain_work(ii, jj, Z, info, N, dtype=f32,
+                                        device=dev)
+    p32 = type(p0)(p0.R.float(), p0.t.float())
+    out_r2, cf, launches, ms = run_phase(
+        "path R 2048", lambda costs: posegraph.solve_pose_graph_relative(
+            p32, work32, max_iters=20, costs=costs))
+    ate_r2 = _rmse(out_r2.poses.t, t_true)
+    rel = abs(float(out_r2.cost) - float(out_t.cost)) / float(out_t.cost)
+    _log("path R 2048", f"f32 cost {float(out_r2.cost):.6e} vs T's f64 "
+                        f"{float(out_t.cost):.6e} (rel {rel:.3e}, gate "
+                        f"{PG_R_VS_T_COST_RTOL}); ATE {ate_r2:.6e} vs T's "
+                        f"{ate_t:.6e}")
+    if not (rel <= PG_R_VS_T_COST_RTOL and abs(ate_r2 - ate_t)
+            < PG_R_VS_T_ATE_REL * max(ate_t, 0.01)):
+        raise AssertionError(f"path R 2048 against T: cost rel {rel}, ATE "
+                             f"{ate_r2} vs {ate_t}")
+    gate_run("path R 2048", out_r2, cf, launches, ms,
+             {"ate": ate_r2, "cost_rel_to_t": rel})
+    del work64, work32, out_t, out_r2
+
+    # ---- R: the bench's 10,000-pose graph, made in f32 (q = 384) ----
+    t_true, p0, ii, jj, Z, info = circle_graph(dtype=np.float32,
+                                               device=dev, **PG_R)
+    N = PG_R["N"]
+    work = posegraph.build_chain_work(ii, jj, Z, info, N, dtype=f32,
+                                      device=dev)
+    solve_r = lambda iters, costs=None: (  # noqa: E731
+        posegraph.solve_pose_graph_relative(p0, work, max_iters=iters,
+                                            costs=costs))
+    out, cf, launches, ms = run_phase("path R", lambda costs: solve_r(80,
+                                                                      costs))
+    ate0, ate = _rmse(p0.t, t_true), _rmse(out.poses.t, t_true)
+    _log("path R", f"{N} poses, {PG_R['n_loops']} loops (q = "
+                   f"{6 * work.loop_i.shape[0]}): ATE {ate0:.6e} -> {ate:.6e}"
+                   f" (gate < {PG_ATE_RATIO} x start)")
+    if not ate < PG_ATE_RATIO * ate0:
+        raise AssertionError(f"path R: ATE {ate} vs start {ate0}")
+    gate_run("path R", out, cf, launches, ms, {"ate": ate, "ate_start": ate0})
+    check_same_bits(out, solve_r(80), "path R")
+    systems["R_q384"] = {f32: first_system(lambda: solve_r(1))}
+    if profile_dir is not None:
+        _profile(lambda: solve_r(5), profile_dir / "path_r.txt",
+                 "path R, 5 LM iterations")
+    del work, out
+
+    # ---- S: the Sim(3) scale-drift graph, f32 (n = 672) ----
+    t_true, s_true, p0, ii, jj, Z, info = mono_sim3_graph(device=dev, **PG_S)
+    solve_s = lambda iters, costs=None: (  # noqa: E731
+        posegraph_sim3.solve_pose_graph_sim3(p0, ii, jj, Z, info,
+                                             max_iters=iters, xtol=0.0,
+                                             costs=costs))
+    out, cf, launches, ms = run_phase("path S", lambda costs: solve_s(40,
+                                                                      costs))
+    ate_of = lambda t: float(((t.double() - t_true) ** 2).sum(1)  # noqa: E731
+                             .mean().sqrt())
+    ate0, ate = ate_of(p0.t), ate_of(out.poses.t)
+    s_err = float((out.poses.s.double() / s_true - 1.0).abs().max())
+    _log("path S", f"{PG_S['N']} keyframes, {PG_S['n_loops']} loops: ATE "
+                   f"{ate0:.6e} -> {ate:.6e} (gate < {PG_S_ATE_RATIO} x "
+                   f"start), scale error {s_err:.3e} (gate < "
+                   f"{PG_S_SCALE_ERR})")
+    if not (ate < PG_S_ATE_RATIO * ate0 and s_err < PG_S_SCALE_ERR):
+        raise AssertionError(f"path S: ATE {ate} vs {ate0}, scale {s_err}")
+    gate_run("path S", out, cf, launches, ms,
+             {"ate": ate, "ate_start": ate0, "scale_err": s_err})
+    check_same_bits(out, solve_s(40), "path S")
+    systems["S_n672"] = {f32: first_system(lambda: solve_s(1))}
+
+    # ---- spd_solve at the four new sizes, in both types: the path's own
+    # system, cast where the path ran in the other type ----
+    for size, native in systems.items():
+        for dtype in (f32, f64):
+            S_, b_ = native.get(dtype, next(iter(native.values())))
+            label = f"{size}_{str(dtype).rsplit('.', 1)[1]}"
+            k2[label] = check_spd(S_.to(dtype).contiguous(),
+                                  b_.to(dtype).contiguous(), f"path {label}")
+    return k2
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="write torch.profiler tables of paths A and B here")
+                    help="write torch.profiler tables of paths A, B, L, D, G "
+                         "and R here")
     args = ap.parse_args()
 
     import numpy as np
@@ -1299,6 +1604,10 @@ def main():
                                    "gated": gated}
     del vsc, vbw, dpc, dlc, bpc, blc
 
+    # ---- 11k. paths Q, T, R and S: the pose graphs, spd_solve at their
+    # systems' sizes ----
+    k2_pg = posegraph_paths(dev, run_phase, check_spd, phases, args.profile)
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -1411,12 +1720,14 @@ def main():
          "launches": sum(by_path["spd_solve"].values()),
          "launches_by_path": by_path["spd_solve"],
          "max_abs_err": max(k2_abs, *(k["max_abs_err"] for k in
-                                     (*k2_big.values(), *k2w.values()))),
+                                     (*k2_big.values(), *k2w.values(),
+                                      *k2_pg.values()))),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
          "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "n6144_path_d": k2_big["D"], "n6144_path_g": k2_big["G"],
-         **{f"path_w_{name}": k for name, k in k2w.items()}},
+         **{f"path_w_{name}": k for name, k in k2w.items()},
+         **{f"path_{name}": k for name, k in k2_pg.items()}},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",

@@ -14,22 +14,29 @@ the dense solve here); F and P, the flat
 layout (``solvers.schur_flat``, dense and PCG); W, the sliding-window
 smoother (``solvers.sliding_window``); V, posterior covariances
 (``solvers.covariance``); E, the st1 undistortion
-(``residuals.camera.undistort_points_fast``).
+(``residuals.camera.undistort_points_fast``); the pose graphs: Q, the
+dense SE(3) solve (``solvers.posegraph.solve_pose_graph``), T, the chain
+solver (``solve_pose_graph_chain``), R, the relative-state solver
+(``solve_pose_graph_relative``), and S, the Sim(3) scale-drift graph
+(``solvers.posegraph_sim3.solve_pose_graph_sim3``).
 
-- ``manifolds``  SO(3) and SE(3), batched over a leading dimension
+- ``manifolds``  SO(2), SE(2), SO(3), SE(3) and Sim(3), batched over
+                 leading dimensions, and the manifold combinators
 - ``sim``        the st20 cube-room, trajectory and loop-closure scenes
-                 (numpy core, torch tensors out, on the card unless
-                 ``device="cpu"``)
+                 and the spiral pose graph (numpy core, torch tensors out,
+                 on the card unless ``device="cpu"``)
 - ``solvers``    ``schur_flat_sm.solve_ba_flat_sm``,
                  ``banded_flat.solve_ba_banded`` (with the stored
                  block-tridiagonal factor and the banded covariances),
                  ``loop_flat.solve_ba_loop`` (LM with Schur elimination),
                  ``incremental.smoother_init`` / ``smoother_arrive``,
                  ``schur.solve_ba`` with ``pcg``, ``schur_flat.solve_ba_flat``
-                 with ``pcg_flat``, ``covariance.ba_covariances`` and
-                 ``sliding_window.run_sliding_window``
+                 with ``pcg_flat``, ``covariance.ba_covariances``,
+                 ``sliding_window.run_sliding_window``, and the pose-graph
+                 LM solvers of ``posegraph`` and ``posegraph_sim3``
 - ``residuals``  ``camera``: pinhole intrinsics, radial-tangential
                  distortion; ``robust``: the robust losses of ``loss=``;
+                 ``posegraph``: the relative SE(3) and Sim(3) factors;
                  ``reprojection``: residuals and analytic Jacobians;
                  ``icp.umeyama``
 - ``evaluation`` ``metrics``: ATE, trajectory alignment, reprojection RMS

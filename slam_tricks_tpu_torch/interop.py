@@ -1,7 +1,7 @@
 """The JAX package's state as the port's tensors.
 
-Each function takes the JAX package's objects (``se3.SE3``,
-``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
+Each function takes the JAX package's objects (``se3.SE3``, ``sim3.Sim3``,
+``PoseGraphProblem``, ``posegraph.ChainGraphWork``, ``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
 ``loop_flat.LoopWork``, ``schur_flat.FlatWork``, ``pcg_flat.PCGWork``,
 ``schur.TrackPairs``, ``pcg.BandPairs``, ``sliding_window.WindowPrior``,
 ``camera.Intrinsics``, ``camera.DistCoeffs``) or anything else whose
@@ -16,13 +16,16 @@ import torch
 
 from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.manifolds.se3 import SE3
+from slam_tricks_tpu_torch.manifolds.sim3 import Sim3
 from slam_tricks_tpu_torch.ops.ba_assemble import layout_index
 from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
+from slam_tricks_tpu_torch.sim.trajectory import PoseGraphProblem
 from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork, chunk_table
 from slam_tricks_tpu_torch.solvers.loop_flat import LoopWork
 from slam_tricks_tpu_torch.solvers.pcg import BandPairs
 from slam_tricks_tpu_torch.solvers.pcg_flat import pcg_work_from_tables
+from slam_tricks_tpu_torch.solvers.posegraph import ChainGraphWork
 from slam_tricks_tpu_torch.solvers.schur import TrackPairs, TrackTable
 from slam_tricks_tpu_torch.solvers.schur_flat import (flat_work_from_table,
                                                       obs_slots)
@@ -39,6 +42,32 @@ def tensor(a, device=None):
 def poses_from_jax(poses, device=None):
     """SE3 with R (C, 3, 3), t (C, 3)."""
     return SE3(tensor(poses.R, device), tensor(poses.t, device))
+
+
+def sim3_from_jax(S, device=None):
+    """Sim3 with R (N, 3, 3), t (N, 3), s (N,)."""
+    return Sim3(tensor(S.R, device), tensor(S.t, device), tensor(S.s, device))
+
+
+def pose_graph_problem_from_jax(prob, device=None):
+    """``sim.trajectory.PoseGraphProblem``; edge indices as int64."""
+    return PoseGraphProblem(
+        poses_true=poses_from_jax(prob.poses_true, device),
+        poses_init=poses_from_jax(prob.poses_init, device),
+        i_idx=tensor(prob.i_idx, device).long(),
+        j_idx=tensor(prob.j_idx, device).long(),
+        Z=poses_from_jax(prob.Z, device),
+        fixed_mask=tensor(prob.fixed_mask, device))
+
+
+def chain_work_from_jax(work, device=None):
+    """``posegraph.ChainGraphWork``; loop indices as int64."""
+    return ChainGraphWork(Z_chain=poses_from_jax(work.Z_chain, device),
+                          info_chain=tensor(work.info_chain, device),
+                          loop_i=tensor(work.loop_i, device).long(),
+                          loop_j=tensor(work.loop_j, device).long(),
+                          Z_loop=poses_from_jax(work.Z_loop, device),
+                          info_loop=tensor(work.info_loop, device))
 
 
 def obs_from_jax(obs, device=None):

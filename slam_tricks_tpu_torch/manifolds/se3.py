@@ -8,7 +8,10 @@ from typing import NamedTuple
 
 import torch
 
+from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.manifolds import so3
+
+DIM = 6
 
 
 class SE3(NamedTuple):
@@ -19,6 +22,12 @@ class SE3(NamedTuple):
 
 def _matvec(M, v):
     return (M @ v[..., None])[..., 0]
+
+
+def identity(dtype=torch.float32, device=None):
+    device = resolve(device)
+    return SE3(torch.eye(3, dtype=dtype, device=device),
+               torch.zeros(3, dtype=dtype, device=device))
 
 
 def exp(xi):
@@ -47,6 +56,39 @@ def act(T, p):
     return _matvec(T.R, p) + T.t
 
 
+def adj(T):
+    """(..., 6, 6) adjoint in [rho, omega] order: [[R, hat(t) R], [0, R]]."""
+    top = torch.cat([T.R, so3.hat(T.t) @ T.R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(T.R), T.R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
 def retract(T, xi):
     """Right perturbation T exp(xi)."""
     return mul(T, exp(xi))
+
+
+def local(Ta, Tb):
+    return log(mul(inv(Ta), Tb))
+
+
+def to_matrix(T):
+    """(..., 4, 4) homogeneous matrix."""
+    top = torch.cat([T.R, T.t[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(M):
+    return SE3(M[..., :3, :3], M[..., :3, 3])
+
+
+def random(generator, dtype=torch.float32, trans_scale=1.0, shape=(),
+           device=None):
+    """Random poses of batch `shape`: a uniform rotation and a normal
+    translation of scale trans_scale, drawn with `generator`."""
+    R = so3.random(generator, dtype, shape, device)
+    t = torch.randn(*shape, 3, generator=generator, dtype=dtype,
+                    device=generator.device).to(R.device)
+    return SE3(R, trans_scale * t)

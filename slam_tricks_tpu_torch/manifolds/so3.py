@@ -8,11 +8,22 @@ inputs'.
 
 import torch
 
+from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.manifolds import _coeffs
+
+DIM = 3  # tangent dimension
 
 
 def _eye_like(w):
     return torch.eye(3, dtype=w.dtype, device=w.device)
+
+
+def _matvec(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def identity(dtype=torch.float32, device=None):
+    return torch.eye(3, dtype=dtype, device=resolve(device))
 
 
 def hat(w):
@@ -24,6 +35,11 @@ def hat(w):
         torch.stack([wz, zero, -wx], dim=-1),
         torch.stack([-wy, wx, zero], dim=-1),
     ], dim=-2)
+
+
+def vee(W):
+    """Inverse of hat: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _theta_sq(w):
@@ -73,6 +89,19 @@ def to_quat(R):
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
 
+def from_quat(q):
+    """(..., 4) unit quaternion [w, x, y, z] -> (..., 3, 3) rotation."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
 def log(R):
     """Robust SO(3) log through the quaternion: 2 atan2(|v|, qw)/|v| * v,
     accurate near theta = 0 and theta = pi."""
@@ -103,7 +132,56 @@ def jl_inv(w):
     return _eye_like(w) - 0.5 * K + e * (K @ K)
 
 
+def jr(w):
+    """Right Jacobian: Jr(w) = Jl(-w)."""
+    return jl(-w)
+
+
+def jr_inv(w):
+    return jl_inv(-w)
+
+
+def mul(Ra, Rb):
+    return Ra @ Rb
+
+
+def inv(R):
+    return R.mT
+
+
+def act(R, p):
+    """Rotate points p (..., 3); R broadcasts against p's leading dims."""
+    return _matvec(R, p)
+
+
+def adj(R):
+    """The adjoint of SO(3) is the matrix itself."""
+    return R
+
+
 def retract(R, w):
     """Right-perturbation boxplus R exp(w), the reference solvers' update
     convention."""
     return R @ exp(w)
+
+
+def local(Ra, Rb):
+    """boxminus: log(Raᵀ Rb), the inverse of retract."""
+    return log(Ra.mT @ Rb)
+
+
+def project(M):
+    """The nearest rotation to M (..., 3, 3), through its SVD."""
+    U, _, Vh = torch.linalg.svd(M)
+    d = torch.linalg.det(U @ Vh)
+    ones = torch.ones_like(d)
+    return (U * torch.stack([ones, ones, d], dim=-1)[..., None, :]) @ Vh
+
+
+def random(generator, dtype=torch.float32, shape=(), device=None):
+    """Uniform random rotations of batch `shape`, from a normal quaternion
+    drawn with `generator` (a torch.Generator, in place of a JAX key)."""
+    q = torch.randn(*shape, 4, generator=generator, dtype=dtype,
+                    device=generator.device).to(resolve(device))
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return from_quat(q * torch.where(q[..., :1] < 0, -1.0, 1.0))

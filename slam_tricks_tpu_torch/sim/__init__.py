@@ -8,3 +8,8 @@ from slam_tricks_tpu_torch.sim.ba_scene import (  # noqa: F401
     make_trajectory_scene,
     perturb_scene,
 )
+from slam_tricks_tpu_torch.sim.trajectory import (  # noqa: F401
+    PoseGraphProblem,
+    make_pose_graph,
+    spiral_poses,
+)

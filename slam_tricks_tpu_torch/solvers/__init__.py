@@ -2,8 +2,9 @@
 the banded trajectory solver (path B), the loop-closure solver (path L),
 the incremental smoother on the banded layout (path I), the
 observation-list reference solver and its PCG (paths O and D), the flat
-layout and its PCG (paths F and P), the sliding-window smoother (path W)
-and the posterior covariances (path V)."""
+layout and its PCG (paths F and P), the sliding-window smoother (path W),
+the posterior covariances (path V), and the pose graphs: dense SE(3)
+(path Q), chain (path T), relative-state (path R) and Sim(3) (path S)."""
 
 from slam_tricks_tpu_torch.solvers.banded_flat import (  # noqa: F401
     BandedWork,
@@ -43,6 +44,18 @@ from slam_tricks_tpu_torch.solvers.pcg_flat import (  # noqa: F401
     PCGWork,
     build_pcg_work,
     solve_rcs_pcg_flat,
+)
+from slam_tricks_tpu_torch.solvers.posegraph import (  # noqa: F401
+    ChainGraphWork,
+    PoseGraphState,
+    build_chain_work,
+    solve_pose_graph,
+    solve_pose_graph_chain,
+    solve_pose_graph_relative,
+)
+from slam_tricks_tpu_torch.solvers.posegraph_sim3 import (  # noqa: F401
+    Sim3GraphState,
+    solve_pose_graph_sim3,
 )
 from slam_tricks_tpu_torch.solvers.schur import (  # noqa: F401
     TrackPairs,

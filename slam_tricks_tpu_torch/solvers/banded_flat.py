@@ -46,7 +46,8 @@ from slam_tricks_tpu_torch.ops.ba_assemble import (CameraIndex, layout_index,
                                                    linearize_assemble)
 from slam_tricks_tpu_torch.ops.tridiag_solve import tridiag_solve
 from slam_tricks_tpu_torch.residuals import robust
-from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed,
+from slam_tricks_tpu_torch.solvers.common import (associative_scan,
+                                                  first_camera_fixed,
                                                   set_full_precision,
                                                   sum_table, table_sum)
 from slam_tricks_tpu_torch.solvers.schur import lm_loop
@@ -415,26 +416,12 @@ def block_tridiag_factor_extend(fac: TridiagFactor, D, E, g0):
 
 def _affine_scan(A, b):
     """The inclusive prefix of y_g = A_g y_{g-1} + b_g, b (G, m, q), as
-    pairs (A_g ... A_0, y_g), by the recursion of the JAX package's
-    associative scan (neighbours combined, the half-size prefix, then the
-    even elements): ~2 log2(G) rounds of batched matrix products, its sums
-    in the same order."""
-    G = A.shape[0]
-    if G < 2:
-        return A, b
-
-    def comb(A1, b1, A2, b2):
-        return A2 @ A1, torch.baddbmm(b2, A2, b1)
-
-    A_odd, b_odd = _affine_scan(*comb(A[0:-1:2], b[0:-1:2], A[1::2], b[1::2]))
-    n = (G - 1) // 2        # the even elements after the first
-    A_even, b_even = comb(A_odd[:n], b_odd[:n], A[2::2], b[2::2])
-    A_out, b_out = torch.empty_like(A), torch.empty_like(b)
-    A_out[0::2] = torch.cat([A[:1], A_even])
-    b_out[0::2] = torch.cat([b[:1], b_even])
-    A_out[1::2] = A_odd
-    b_out[1::2] = b_odd
-    return A_out, b_out
+    pairs (A_g ... A_0, y_g), by ``common.associative_scan``: ~2 log2(G)
+    rounds of batched matrix products, its sums in the JAX package's
+    order."""
+    return associative_scan(
+        lambda e1, e2: (e2[0] @ e1[0], torch.baddbmm(e2[1], e2[0], e1[1])),
+        (A, b))
 
 
 def tridiag_forward(fac: TridiagFactor, R):

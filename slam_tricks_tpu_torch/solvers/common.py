@@ -51,3 +51,25 @@ def table_sum(src, table):
     same bits on every call, where ``index_add_`` sums by float atomics."""
     padded = torch.cat([src, src.new_zeros((src.shape[0], 1))], dim=1)
     return padded[:, table].sum(dim=-1).T
+
+
+def associative_scan(comb, xs):
+    """The inclusive prefix of the tuple of tensors `xs` (each (G, ...))
+    under the associative comb(a, b) -> tuple, a the earlier element, by
+    the recursion of ``jax.lax.associative_scan``: neighbours combined, the
+    half-size prefix, then the even elements. ~2 log2(G) rounds of batched
+    operations, combined in the JAX package's order."""
+    G = xs[0].shape[0]
+    if G < 2:
+        return xs
+    odd = associative_scan(comb, comb(tuple(x[0:-1:2] for x in xs),
+                                      tuple(x[1::2] for x in xs)))
+    n = (G - 1) // 2        # the even elements after the first
+    even = comb(tuple(o[:n] for o in odd), tuple(x[2::2] for x in xs))
+    out = []
+    for x, o, e in zip(xs, odd, even):
+        y = torch.empty_like(x)
+        y[0::2] = torch.cat([x[:1], e])
+        y[1::2] = o
+        out.append(y)
+    return tuple(out)

@@ -84,9 +84,11 @@ def build_track_table(cam_idx, lm_idx, weight=None, *, n_points=None,
     return TrackTable(obs_idx=obs_idx, mask=mask)
 
 
-def lm_accept(cost_old, cost_try, lam, nu, pred, bad):
+def lm_accept(cost_old, cost_try, lam, nu, pred, bad, lam_min=1e-12):
     """Nielsen gain-ratio trust-region update, the control law every LM loop
-    of the JAX package shares. pred is the predicted model decrease.
+    of the JAX package shares. pred is the predicted model decrease; the
+    new damping is clipped to [lam_min, 1e10] (the pose-graph solvers
+    clip at 1e-14).
 
     Returns (accept, lam_new, nu_new), all tensors on the device."""
     rho = (cost_old - cost_try) / torch.clamp_min(pred, 1e-30)
@@ -95,7 +97,7 @@ def lm_accept(cost_old, cost_try, lam, nu, pred, bad):
         accept,
         lam * torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0),
         lam * nu)
-    lam_new = torch.clamp(lam_new, 1e-12, 1e10)
+    lam_new = torch.clamp(lam_new, lam_min, 1e10)
     nu_new = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
     return accept, lam_new, nu_new
 

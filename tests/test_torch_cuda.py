@@ -18,7 +18,8 @@ undistort 2.5e-4 px in f32 (a few ulp at 700 px: the kernel's steps are
 fused multiply-adds with an approximate reciprocal of the determinant) and
 1e-9 px in f64; the f64 solves (paths A, B, the loop-closure solve, the
 incremental stream, schur.solve_ba dense and paired, schur_flat dense and
-PCG, and a sliding-window shift) to 1e-8 in the poses, as against JAX; two
+PCG, a sliding-window shift, and the pose graphs' dense, chain,
+relative-state and Sim(3) solves) to 1e-8 in the poses, as against JAX; two
 f32 solves of paths A and B give the same bits; ba_assemble at the large-C
 grid (1024 cameras, K = 464) as above, and spd_solve at n = 6144."""
 
@@ -646,3 +647,48 @@ def test_sliding_window_shift_on_cuda_matches_cpu():
                                atol=1e-8)
     np.testing.assert_allclose(gx.cpu().numpy(), rx.numpy(), rtol=0,
                                atol=1e-8)
+
+
+@pytest.mark.parametrize("path", ["Q", "T", "R", "S"])
+def test_pose_graph_solve_on_cuda_matches_cpu(path):
+    """The pose-graph solvers on the card against the CPU, f64, 4 LM
+    iterations (before the f64 floor, where a stop decision may flip on
+    sub-ulp differences) on the spiral pose graph (make_pose_graph, 40
+    poses, a loop every 8): Q dense, T chain, R relative state, S the
+    same graph lifted to Sim(3) with its scale drifted by e^{-0.004 i}."""
+    from slam_tricks_tpu_torch.manifolds import sim3
+    from slam_tricks_tpu_torch.sim import make_pose_graph
+    from slam_tricks_tpu_torch.solvers import posegraph, posegraph_sim3
+
+    dev = require_cuda()
+    outs = []
+    for device in ("cpu", dev):
+        prob = make_pose_graph(n=40, odo_noise=0.03, meas_noise=0.003,
+                               seed=2, device=device)
+        args = (prob.i_idx, prob.j_idx, prob.Z)
+        if path == "Q":
+            out = posegraph.solve_pose_graph(prob.poses_init, *args,
+                                             fixed_mask=prob.fixed_mask,
+                                             max_iters=4)
+        elif path == "S":
+            s = torch.exp(-0.004 * torch.arange(
+                40, dtype=torch.float64, device=device))
+            poses = sim3.from_se3(prob.poses_init, s)
+            Z = sim3.from_se3(prob.Z, s[prob.j_idx] / s[prob.i_idx])
+            out = posegraph_sim3.solve_pose_graph_sim3(
+                poses, prob.i_idx, prob.j_idx, Z, max_iters=4)
+        else:
+            info = torch.eye(6, dtype=torch.float64, device=device).expand(
+                prob.i_idx.shape[0], 6, 6)
+            work = posegraph.build_chain_work(*args, info, 40,
+                                              dtype=torch.float64,
+                                              device=device)
+            solve = (posegraph.solve_pose_graph_chain if path == "T"
+                     else posegraph.solve_pose_graph_relative)
+            out = solve(prob.poses_init, work, max_iters=4)
+        outs.append(out)
+    cpu, card = outs
+    assert card.it == cpu.it == 4
+    assert rel_err(card.cost, cpu.cost) < 1e-8
+    for a, b in zip(card.poses, cpu.poses):
+        assert float((a.cpu() - b).abs().max()) < 1e-8
