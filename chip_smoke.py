@@ -57,6 +57,21 @@ through the kernels, each with every launch count set to 0 just before it:
   bench makes it, 80 iterations, q = 384); S, the Sim(3) scale-drift graph of bench.py (96 keyframes, 6
   loops, float32, 40 iterations, n = 672); spd_solve against plain on
   each path's first system in float32 and float64;
+- the inertial paths, after tridiag_solve with many right-hand sides
+  against plain at (G, m, q) = (1024, 9, 7), (1024, 9, 6) and (1023, 9, 7)
+  in float32 and float64 (and path B's single right-hand side as a 3-D r,
+  bitwise the 2-D answer): J, IMU preintegration of 3072 segments x 64
+  samples (float32; the truth's residual on a zero-noise float64 stream of
+  that size below 1e-6); K, the chain VI smoother solve_vi_chain on 1024
+  keyframes (float32, 25 iterations, one tridiag_solve of q = 7 an
+  iteration; ATE below 0.4 x the observations', the bias within 0.02,
+  the same bits twice) and its covariances (q = 6; every block symmetric
+  positive definite); K64, the chain against the dense smoother on 64
+  keyframes in float64 (spd_solve at n = 582; cost and poses within
+  1e-8); N, visual-inertial bundle adjustment on 12 keyframes and 60
+  landmarks from a 0.7x-scaled start (float64, spd_solve at n = 294;
+  scale within 0.03 of 1); U, vi_initialize, the ESKF over 80 steps and
+  the INS over 6000 (float64, no kernel, the JAX tests' gates);
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -69,7 +84,7 @@ earlier run; `device_ms` on the card alone, its calls queued behind a head
 start of matrix products) and bound, each phase's ms per LM iteration,
 iterations, final cost and launches, the card's name and power limit from
 nvidia-smi, and last the JSON status line. With --profile DIR it also writes
-torch.profiler tables of paths A, B, L, D, G and R to DIR.
+torch.profiler tables of paths A, B, L, D, G, R and K to DIR.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -600,12 +615,447 @@ def posegraph_paths(dev, run_phase, check_spd, phases, profile_dir=None):
     return k2
 
 
+# ---- slice D: the inertial paths (J, K, K64, N and U) ----
+
+VI_J = dict(segments=3072, samples=64, dt=0.0025)   # bench.py:1148-1165
+VI_K = dict(n_keyframes=1024, samples_per_seg=20, dt=0.005, sigma_g=2e-4,
+            sigma_a=2e-3, obs_rot_noise=0.005, obs_trans_noise=0.01, seed=3)
+#                             bench.py:1172-1190, f32, 25 iterations
+VI_SIG = dict(obs_rot_sigma=0.005, obs_trans_sigma=0.01)
+J_ZERO_NOISE_MAX = 1e-6     # J: the truth's residual on the zero-noise
+#                             stream (at this size ~1.2e-7 in f64 on the
+#                             CPU; tests/test_preintegration.py:37 holds
+#                             its smaller stream to 5e-5)
+K_ATE_RATIO = 0.4           # K: ATE below this x the observations', the
+K_BIAS_ERR = 0.02           # bias within this of the truth
+#                             (tests/test_preintegration.py:318-337)
+K64_COST_RTOL = 1e-8        # K64: chain against dense, f64
+K64_POSE_TOL = 1e-8
+N_SCALE_ERR = 0.03          # N: |scale - 1| (tests/test_preintegration.py:
+#                             214), the 0.7x-scaled start
+U_SCALE_ERR = 1e-4          # U: vi_initialize's scale against 2.3 (:240)
+U_ESKF_ATE_RATIO = 0.5      # U: the filter's ATE against the observations'
+#                             (tests/test_estimation.py:25)
+U_INS_DRIFT_M = 5.0         # U: INS drift in m and the final speed in m/s
+U_INS_SPEED = 0.2           # (tests/test_estimation.py:78)
+TRI_MANY_SHAPES = ((1024, 9, 7), (1024, 9, 6), (1023, 9, 7))
+
+
+def _dense_tridiag(D, E):
+    """The dense (G m, G m) matrix of the block-tridiagonal (D, E)."""
+    import torch
+
+    G, m = D.shape[0], D.shape[1]
+    T = torch.zeros((G, m, G, m), dtype=D.dtype, device=D.device)
+    gi = torch.arange(G, device=D.device)
+    T[gi, :, gi, :] = D
+    if G > 1:
+        T[gi[:-1] + 1, :, gi[:-1], :] = E
+        T[gi[:-1], :, gi[:-1] + 1, :] = E.transpose(1, 2)
+    return T.reshape(G * m, G * m)
+
+
+def check_tridiag_many(D, E, r, label, timed=False):
+    """tridiag_solve against plain on r (G, m, q): the residual against
+    plain's and, on a random system, x to TRI_RANDOM_REL_TOL (1e-9 in f64).
+    With `timed`, also the kernels line's numbers: ms, device ms, plain ms,
+    the library's dense Cholesky solve with q columns, and the bound."""
+    import torch
+
+    from slam_tricks_tpu_torch.ops import tridiag_solve
+
+    x_k = tridiag_solve.tridiag_solve(D, E, r)
+    x_p = tridiag_solve.tridiag_solve_plain(D, E, r)
+    torch.cuda.synchronize()
+    G, m, q = r.shape
+    T64 = _dense_tridiag(D.double(), E.double())
+    r64 = r.double().reshape(G * m, q)
+    res_k = float((T64 @ x_k.double().reshape(G * m, q) - r64).norm()
+                  / r64.norm())
+    res_p = float((T64 @ x_p.double().reshape(G * m, q) - r64).norm()
+                  / r64.norm())
+    f64 = D.dtype == torch.float64
+    diff = _rel(x_k, x_p)
+    _log("tridiag_solve", f"{label} (G, m, q)=({G}, {m}, {q}) {D.dtype}: "
+                          f"|Tx-r|/|r| kernel {res_k:.3e} plain {res_p:.3e}; "
+                          f"max|x-x_plain|/max|x_plain| {diff:.3e}")
+    eps = 1e-14 if f64 else 1e-6
+    if not res_k <= TRI_RES_FACTOR * res_p + eps:
+        raise AssertionError(f"tridiag_solve {label}: residual {res_k} > "
+                             f"{TRI_RES_FACTOR} x plain {res_p} + {eps}")
+    if "random" in label and not diff <= (1e-9 if f64 else TRI_RANDOM_REL_TOL):
+        raise AssertionError(f"tridiag_solve {label}: rel diff {diff}")
+    out = {"G": G, "m": m, "q": q, "max_abs_err": float((x_k - x_p).abs()
+                                                        .max()),
+           "residual": res_k, "plain_residual": res_p}
+    if not timed:
+        return out
+    ms, plain_ms, device_ms = _paired_ms(
+        lambda: tridiag_solve.tridiag_solve(D, E, r),
+        lambda: tridiag_solve.tridiag_solve_plain(D, E, r), reps=3)
+    Tdense, rdense = T64.to(D.dtype), r.reshape(G * m, q)
+    lib_ms = _time_ms(lambda: torch.cholesky_solve(
+        rdense, torch.linalg.cholesky_ex(Tdense)[0]), reps=3)
+    bound_ms, by = _bound(_nbytes(D, E, r, r), tridiag_solve.flops(G, m, q),
+                          f64)
+    _log("tridiag_solve", f"{label}: kernel {ms:.4f} ms a call "
+                          f"({device_ms:.4f} ms on the card alone); plain "
+                          f"torch {plain_ms:.4f} ms, library (cholesky_ex + "
+                          f"cholesky_solve of the dense {G * m}^2 matrix, "
+                          f"{q} columns) {lib_ms:.4f} ms, bound "
+                          f"{bound_ms:.5f} ms ({by})")
+    out.update(ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+    return out
+
+
+def check_spd_blocks(S, label):
+    """Covariance blocks S (..., n, n) finite, symmetric to COV_SYM_TOL and
+    positive definite: (max asymmetry, least eigenvalue)."""
+    import torch
+
+    eig = torch.linalg.eigvalsh(0.5 * (S + S.mT).double())
+    asym = float((S - S.mT).abs().max() / S.abs().max())
+    if not (bool(torch.isfinite(S).all()) and asym <= COV_SYM_TOL
+            and bool((eig[..., 0] > 0).all())):
+        raise AssertionError(f"{label}: not symmetric positive definite "
+                             f"(asymmetry {asym}, least eigenvalue "
+                             f"{float(eig[..., 0].min())})")
+    return asym, float(eig[..., 0].min())
+
+
+def inertial_paths(dev, run_phase, check_spd, phases, profile_dir=None):
+    """Paths J, K, K64, N and U of slice D, each solve run with every launch
+    count set to 0 just before it (run_phase) and gated; tridiag_solve held
+    against plain with many right-hand sides at path K's shapes before the
+    paths, and timed on K's own systems; spd_solve held against plain
+    (check_spd) on the first systems of the dense VI smoother (K64,
+    n = 582) and of the VI bundle adjustment (N, n = 294). Returns
+    {"tridiag": {label: numbers}, "spd": {label: numbers}, "launches":
+    {path: {kernel: count}}}. With profile_dir, also writes torch.profiler's
+    table of 5 iterations of path K there."""
+    import numpy as np
+    import torch
+
+    from slam_tricks_tpu_torch.estimation import (eskf, ins, preintegration,
+                                                  vi_chain, vi_init,
+                                                  vi_smoother)
+    from slam_tricks_tpu_torch.evaluation import metrics
+    from slam_tricks_tpu_torch.manifolds import se3
+    from slam_tricks_tpu_torch.sim import spiral_poses
+    from slam_tricks_tpu_torch.solvers import banded_flat, common
+
+    f32, f64 = torch.float32, torch.float64
+    t_start = time.perf_counter()
+    tri, spd, launches_of = {}, {}, {}
+
+    # ---- tridiag_solve with many right-hand sides, random systems ----
+    rng = np.random.default_rng(9)
+    for G, m, q in TRI_MANY_SHAPES:
+        A = rng.normal(size=(G, m, m + 3))
+        D = A @ A.transpose(0, 2, 1) + m * np.eye(m)[None]
+        E = 0.3 * rng.normal(size=(G - 1, m, m))
+        r = rng.normal(size=(G, m, q))
+        for dtype in (f32, f64):
+            T_ = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+            key = f"random_{G}_{m}_{q}_{str(dtype).rsplit('.', 1)[1]}"
+            tri[key] = check_tridiag_many(T_(D), T_(E), T_(r),
+                                          f"random {key}")
+
+    # ---- J: preintegration of 3072 segments x 64 samples, f32 ----
+    nseg, S, dtj = VI_J["segments"], VI_J["samples"], VI_J["dt"]
+    simj = vi_smoother.simulate_vi(n_keyframes=8, samples_per_seg=S, dt=dtj,
+                                   sigma_g=2e-4, sigma_a=2e-3, dtype=f32,
+                                   device=dev)
+    gyro = simj.gyro[0].expand(nseg, S, 3).contiguous()
+    accel = simj.accel[0].expand(nseg, S, 3).contiguous()
+    bz = torch.zeros(3, dtype=f32, device=dev)
+    pre_j = preintegration.preintegrate(gyro, accel, dtj, bz, bz)
+    ms_j = _time_ms(lambda: preintegration.preintegrate(gyro, accel, dtj, bz,
+                                                        bz), rounds=3, reps=2)
+    if not all(bool(torch.isfinite(f).all()) for f in pre_j):
+        raise AssertionError("path J: non-finite preintegration")
+    # gate: the zero-noise f64 stream at the same size, the truth's residual
+    sim0 = vi_smoother.simulate_vi(n_keyframes=nseg + 1, samples_per_seg=S,
+                                   dt=dtj, device=dev)
+    pre0 = vi_smoother.preintegrate_segments(sim0, sim0.bg_true,
+                                             sim0.ba_true)
+    P0 = sim0.poses_true
+    r0 = preintegration.imu_residual(
+        pre0, se3.SE3(P0.R[:-1], P0.t[:-1]), sim0.vels_true[:-1],
+        se3.SE3(P0.R[1:], P0.t[1:]), sim0.vels_true[1:], sim0.bg_true,
+        sim0.ba_true)
+    res0 = float(r0.abs().max())
+    _log("path J", f"{nseg} segments x {S} samples f32: {ms_j:.3f} ms a "
+                   f"call (CUDA events), {nseg / ms_j * 1e3:.4e} segments/s; "
+                   f"zero-noise f64 stream of the same size: the truth's "
+                   f"largest residual {res0:.3e} (gate <= {J_ZERO_NOISE_MAX})")
+    if not res0 <= J_ZERO_NOISE_MAX:
+        raise AssertionError(f"path J: zero-noise residual {res0}")
+    phases["J"] = {"ms": ms_j, "segments_per_s": nseg / ms_j * 1e3,
+                   "segments": nseg, "samples": S,
+                   "zero_noise_residual": res0}
+    del gyro, accel, pre_j, sim0, pre0, r0
+
+    # ---- K: solve_vi_chain at K = 1024 in f32, 25 iterations ----
+    simk = vi_smoother.simulate_vi(dtype=f32, device=dev, **VI_K)
+    b0 = torch.zeros(6, dtype=f32, device=dev)
+    prek = vi_smoother.preintegrate_segments(simk, b0[:3], b0[3:],
+                                             sigma_g=2e-4, sigma_a=2e-3)
+    solve_k = lambda iters, costs=None: vi_chain.solve_vi_chain(  # noqa: E731
+        prek, simk.obs_poses, simk.obs_poses, simk.vels_true, b0,
+        max_iters=iters, costs=costs, **VI_SIG)
+    out_k, cf, launches, ms = run_phase("path K", lambda costs: solve_k(
+        25, costs))
+    ate_obs = float(metrics.ate_translation_rmse(simk.obs_poses,
+                                                 simk.poses_true))
+    ate_k = float(metrics.ate_translation_rmse(out_k.poses, simk.poses_true))
+    bias_true = torch.cat([simk.bg_true, simk.ba_true])
+    bias_err = float(torch.linalg.vector_norm(out_k.bias - bias_true))
+    _log("path K", f"K = {VI_K['n_keyframes']} f32: ATE {ate_k:.6e} against "
+                   f"the observations' {ate_obs:.6e} (gate < {K_ATE_RATIO} x)"
+                   f"; |bias - truth| {bias_err:.4e} (gate < {K_BIAS_ERR})")
+    _check_costs(cf, cf[0], "path K")
+    if launches["tridiag_solve"] != out_k.it or launches["spd_solve"]:
+        raise AssertionError(f"path K: launches {launches} in {out_k.it} "
+                             f"iterations")
+    if not (ate_k < K_ATE_RATIO * ate_obs and bias_err < K_BIAS_ERR):
+        raise AssertionError(f"path K: ATE {ate_k} vs {ate_obs}, bias "
+                             f"{bias_err}")
+    again = solve_k(25)
+    check_same_bits(out_k, again, "path K")
+    if not torch.equal(out_k.bias, again.bias):
+        raise AssertionError("path K: two runs differ in the bias")
+    launches_of["K"] = launches
+    # the kernel on K's own systems: the first iteration's [-g | U] (q = 7)
+    (calls,) = captured_calls([(vi_chain, "block_tridiag_solve")],
+                              lambda: solve_k(1))
+    tri["path_K_q7"] = check_tridiag_many(*(a.contiguous() for a in calls[0]),
+                                          "path K first step", timed=True)
+
+    # covariances at K's state (tridiag_solve with q = 6)
+    cov_run = lambda: vi_chain.vi_chain_covariances(  # noqa: E731
+        prek, simk.obs_poses, out_k.poses, out_k.vels, out_k.bias, **VI_SIG)
+    cov_run()
+    (state_cov, bias_cov), _, launches_of["K_cov"], cov_ms = run_phase(
+        "path K covariances", lambda costs: cov_run(), iters_of=lambda o: 1)
+    asym, least = check_spd_blocks(state_cov, "path K covariances")
+    b_asym, b_least = check_spd_blocks(bias_cov, "path K bias covariance")
+    _log("path K", f"vi_chain_covariances: {cov_ms:.2f} ms (CUDA events); "
+                   f"{state_cov.shape[0]} state blocks 9 x 9 symmetric "
+                   f"(max asymmetry {asym:.2e}) and positive definite "
+                   f"(least eigenvalue {least:.3e}); bias 6 x 6 asymmetry "
+                   f"{b_asym:.2e}, least eigenvalue {b_least:.3e}; launches "
+                   f"{launches_of['K_cov']}")
+    if launches_of["K_cov"]["tridiag_solve"] != 1:
+        raise AssertionError(f"path K covariances: {launches_of['K_cov']}")
+    (calls,) = captured_calls([(vi_chain, "block_tridiag_solve")], cov_run)
+    tri["path_K_cov_q6"] = check_tridiag_many(
+        *(a.contiguous() for a in calls[0]), "path K covariances",
+        timed=True)
+    # where an iteration's time goes: the linearization (every step of
+    # this run is accepted), the cost of the trial state, the solve, and
+    # the Takahashi loop of the covariances, each timed alone at K's state
+    lin_k, cost_k = vi_chain._system(prek, simk.obs_poses, VI_SIG[
+        "obs_rot_sigma"], VI_SIG["obs_trans_sigma"], 1.0,
+        preintegration.GRAVITY, "path K")
+    x_k = (out_k.poses, out_k.vels, out_k.bias)
+    D_k, E_k = lin_k(*x_k)[:2]
+    split = {"linearize_ms": _time_ms(lambda: lin_k(*x_k), rounds=3, reps=3),
+             "cost_ms": _time_ms(lambda: cost_k(*x_k), rounds=3, reps=3),
+             "solve_ms": tri["path_K_q7"]["ms"],
+             "takahashi_ms": _time_ms(
+                 lambda: banded_flat._takahashi_inverse_blocks(
+                     D_k, E_k, D_k.shape[0]), rounds=1, reps=1)}
+    split["rest_ms"] = ms - split["linearize_ms"] - split["cost_ms"] - split[
+        "solve_ms"]
+    _log("path K", "an iteration's parts, each timed alone (CUDA events, "
+                   "host included): " + ", ".join(
+                       f"{k} {v:.3f}" for k, v in split.items()))
+    if profile_dir is not None:
+        _profile(lambda: solve_k(5), profile_dir / "path_k.txt",
+                 "path K, 5 LM iterations")
+    phases["K"] = {"ms_per_lm_iter": ms, "iters": out_k.it,
+                   "final_cost": cf[-1], "launches": launches, "ate": ate_k,
+                   "ate_obs": ate_obs, "bias_err": bias_err,
+                   "covariances_ms": cov_ms, "split": split}
+    del simk, prek, out_k, again, state_cov, bias_cov, calls
+
+    # ---- K64: the chain against the dense smoother, K = 64 in f64 ----
+    sim64 = vi_smoother.simulate_vi(dtype=f64, device=dev,
+                                    **{**VI_K, "n_keyframes": 64})
+    z64 = torch.zeros(6, dtype=f64, device=dev)
+    pre64 = vi_smoother.preintegrate_segments(sim64, z64[:3], z64[3:],
+                                              sigma_g=2e-4, sigma_a=2e-3)
+    chain, cf, launches, ms_c = run_phase(
+        "path K64 chain", lambda costs: vi_chain.solve_vi_chain(
+            pre64, sim64.obs_poses, sim64.obs_poses, sim64.vels_true, z64,
+            max_iters=40, costs=costs, **VI_SIG))
+    launches_of["K64_chain"] = launches
+    dense_solve = lambda iters: vi_smoother.solve_vi_smoother(  # noqa: E731
+        pre64, sim64.obs_poses, sim64.obs_poses, sim64.vels_true, z64,
+        max_iters=iters, **VI_SIG)
+    dense_solve(1)       # torch.func's first use, outside the timed run
+    dense, cfd, launches_d, ms_d = run_phase(
+        "path K64 dense", lambda costs: dense_solve(40),
+        iters_of=lambda o: o.iterations)
+    launches_of["K64_dense"] = launches_d
+    cost_rel = abs(float(chain.cost) - float(dense.cost)) / float(dense.cost)
+    pose_err = max(float((chain.poses.t - dense.poses.t).abs().max()),
+                   float((chain.poses.R - dense.poses.R).abs().max()))
+    _log("path K64", f"f64: chain {chain.it} iterations {ms_c:.3f} ms each, "
+                     f"dense {dense.iterations} iterations {ms_d:.3f} ms each "
+                     f"(spd_solve n = {9 * 64 + 6}: {launches_d['spd_solve']} "
+                     f"launches); cost {float(chain.cost):.12e} against "
+                     f"{float(dense.cost):.12e} (rel {cost_rel:.3e}, gate "
+                     f"{K64_COST_RTOL}); poses {pose_err:.3e} (gate "
+                     f"{K64_POSE_TOL})")
+    if (launches["tridiag_solve"] != chain.it
+            or launches_d["spd_solve"] != dense.iterations
+            or launches_d["tridiag_solve"]):
+        raise AssertionError(f"path K64 launches: chain {launches}, dense "
+                             f"{launches_d}")
+    if not (cost_rel <= K64_COST_RTOL and pose_err <= K64_POSE_TOL):
+        raise AssertionError(f"path K64: chain and dense differ: cost "
+                             f"{cost_rel}, poses {pose_err}")
+    (calls,) = captured_calls([(common, "spd_solve")],
+                              lambda: dense_solve(1))
+    spd["path_K64_n582_float64"] = {**check_spd(*calls[0], "path K64 dense"),
+                                    "launches": launches_d["spd_solve"]}
+    phases["K64"] = {"chain_ms_per_lm_iter": ms_c, "chain_iters": chain.it,
+                     "dense_ms_per_lm_iter": ms_d,
+                     "dense_iters": dense.iterations,
+                     "final_cost": float(dense.cost), "cost_rel": cost_rel,
+                     "pose_err": pose_err, "launches_dense": launches_d}
+    del sim64, pre64, chain, dense, calls
+
+    # ---- N: solve_vi_ba, K = 12, 60 landmarks, a 0.7x-scaled start ----
+    simn = vi_smoother.simulate_vi(n_keyframes=12, samples_per_seg=100,
+                                   dt=0.005, sigma_g=1e-4, sigma_a=1e-3,
+                                   seed=11, device=dev)
+    pts, uv, w = vi_smoother.simulate_vi_landmarks(simn, n_landmarks=60,
+                                                   uv_noise=5e-4, seed=2)
+    s0, c0 = 0.7, simn.poses_true.t[0]
+    poses0 = se3.SE3(simn.poses_true.R, c0 + s0 * (simn.poses_true.t - c0))
+    zn = torch.zeros(6, dtype=f64, device=dev)
+    pren = vi_smoother.preintegrate_segments(simn, zn[:3], zn[3:],
+                                             sigma_g=1e-4, sigma_a=1e-3)
+    prior = se3.SE3(simn.poses_true.R[0], simn.poses_true.t[0])
+    ba_solve = lambda iters: vi_smoother.solve_vi_ba(  # noqa: E731
+        pren, uv, w, poses0, s0 * simn.vels_true, zn, c0 + s0 * (pts - c0),
+        pose0_prior=prior, max_iters=iters)
+    (sol_n, _), cfn, launches_n, ms_n = run_phase(
+        "path N", lambda costs: ba_solve(40),
+        iters_of=lambda o: o[0].iterations)
+    t_est, t_true = sol_n.poses.t, simn.poses_true.t
+    scale = float(((t_est[1:] - t_est[:-1]).norm(dim=1)
+                   / (t_true[1:] - t_true[:-1]).norm(dim=1)).mean())
+    n_sys = 12 * 9 + 6 + 60 * 3
+    _log("path N", f"{int(w.sum())} observations, n = {n_sys}: "
+                   f"{sol_n.iterations} iterations, {ms_n:.3f} ms each, "
+                   f"cost {float(sol_n.cost):.6e}; scale {scale:.6f} from "
+                   f"{s0} (gate |scale - 1| < {N_SCALE_ERR})")
+    if launches_n["spd_solve"] != sol_n.iterations:
+        raise AssertionError(f"path N launches {launches_n}")
+    if not abs(scale - 1.0) < N_SCALE_ERR:
+        raise AssertionError(f"path N: scale {scale}")
+    launches_of["N"] = launches_n
+    (calls,) = captured_calls([(common, "spd_solve")], lambda: ba_solve(1))
+    spd["path_N_n294_float64"] = {**check_spd(*calls[0], "path N"),
+                                  "launches": launches_n["spd_solve"]}
+    phases["N"] = {"ms_per_lm_iter": ms_n, "iters": sol_n.iterations,
+                   "final_cost": float(sol_n.cost), "scale": scale,
+                   "launches": launches_n}
+    del simn, pren, sol_n, calls
+
+    # ---- U: vi_initialize, filter_trajectory, mechanize_trajectory ----
+    t0 = time.perf_counter()
+    simu = vi_smoother.simulate_vi(n_keyframes=12, samples_per_seg=50,
+                                   dt=0.005, bg=(0, 0, 0), ba=(0, 0, 0),
+                                   device=dev)
+    z3 = torch.zeros(3, dtype=f64, device=dev)
+    init = vi_init.vi_initialize(
+        vi_smoother.preintegrate_segments(simu, z3, z3),
+        se3.SE3(simu.poses_true.R, simu.poses_true.t / 2.3))
+    scale_err = abs(float(init.scale) - 2.3)
+
+    rng = np.random.default_rng(13)
+    n = 80
+    truth = spiral_poses(n, device=dev)
+    odo_sig, obs_sig = 0.002, 0.05
+    noisy = lambda T, sig: se3.mul(T, se3.exp(torch.as_tensor(  # noqa: E731
+        rng.normal(size=6) * sig, dtype=f64, device=dev)))
+    Ti, Tj = se3.SE3(truth.R[:-1], truth.t[:-1]), se3.SE3(truth.R[1:],
+                                                          truth.t[1:])
+    odo_l, obs_l = [], []
+    for k in range(n - 1):
+        Tk = se3.SE3(Ti.R[k], Ti.t[k])
+        Tk1 = se3.SE3(Tj.R[k], Tj.t[k])
+        odo_l.append(noisy(se3.mul(se3.inv(Tk), Tk1), odo_sig))
+        obs_l.append(noisy(Tk1, obs_sig))
+    odo = se3.SE3(torch.stack([o.R for o in odo_l]),
+                  torch.stack([o.t for o in odo_l]))
+    obs = se3.SE3(torch.stack([o.R for o in obs_l]),
+                  torch.stack([o.t for o in obs_l]))
+    eye6 = torch.eye(6, dtype=f64, device=dev)
+    Ts, fin = eskf.filter_trajectory(
+        se3.SE3(truth.R[0], truth.t[0]), eye6 * 1e-6, odo, obs,
+        torch.ones(n - 1, dtype=torch.bool, device=dev), eye6 * odo_sig ** 2,
+        eye6 * obs_sig ** 2)
+    ate_f = float(metrics.ate_rmse(Ts, Tj))
+    ate_o = float(metrics.ate_rmse(obs, Tj))
+
+    lat, dt_ins, n_ins = np.deg2rad(30.0), 0.01, 6000
+    ell = ins.ELLIPSOIDS["WGS84"]
+    lat_t = torch.tensor(lat, dtype=f64, device=dev)
+    g = float(ins.normal_gravity(lat_t, torch.zeros_like(lat_t)))
+    om = ell["omega"]
+    w_ie = torch.tensor([om * np.cos(lat), 0.0, -om * np.sin(lat)],
+                        dtype=f64, device=dev)
+    state0 = ins.INSState(lat=lat_t, lon=torch.zeros_like(lat_t),
+                          h=torch.zeros_like(lat_t),
+                          v_ned=torch.zeros(3, dtype=f64, device=dev),
+                          q_nb=torch.tensor([1.0, 0, 0, 0], dtype=f64,
+                                            device=dev))
+    hist = ins.mechanize_trajectory(
+        state0, (w_ie * dt_ins).expand(n_ins, 3),
+        torch.tensor([0.0, 0.0, -g * dt_ins], dtype=f64,
+                     device=dev).expand(n_ins, 3), dt_ins)
+    torch.cuda.synchronize()
+    u_s = time.perf_counter() - t0
+    drift = abs(float(hist.lat[-1]) - lat) * 6.37e6
+    dh = abs(float(hist.h[-1]))
+    speed = float(torch.linalg.vector_norm(hist.v_ned[-1]))
+    finite = all(bool(torch.isfinite(f).all()) for f in hist)
+    _log("path U", f"f64, {u_s:.2f} s (host clock): vi_initialize scale "
+                   f"{float(init.scale):.8f} (|s - 2.3| {scale_err:.2e}, gate "
+                   f"{U_SCALE_ERR}), |g| {float(init.gravity.norm()):.6f}; "
+                   f"ESKF {n} steps ATE {ate_f:.4e} against the observations'"
+                   f" {ate_o:.4e} (gate < {U_ESKF_ATE_RATIO} x); INS {n_ins} "
+                   f"steps: drift {drift:.3e} m, height {dh:.3e} m, speed "
+                   f"{speed:.3e} m/s (gates {U_INS_DRIFT_M} m, "
+                   f"{U_INS_SPEED} m/s), finite {finite}")
+    if not (scale_err < U_SCALE_ERR and ate_f < U_ESKF_ATE_RATIO * ate_o
+            and finite and drift < U_INS_DRIFT_M and dh < U_INS_DRIFT_M
+            and speed < U_INS_SPEED):
+        raise AssertionError("path U: a gate failed")
+    phases["U"] = {"seconds": u_s, "scale": float(init.scale),
+                   "eskf_ate": ate_f, "eskf_ate_obs": ate_o,
+                   "ins_drift_m": drift, "ins_speed": speed}
+    wall = time.perf_counter() - t_start
+    _log("inertial", f"paths J, K, K64, N and U with their kernel checks: "
+                     f"{wall:.1f} s of wall time")
+    phases["inertial"] = {"wall_s": wall}
+    return {"tridiag": tri, "spd": spd, "launches": launches_of}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
-                    help="write torch.profiler tables of paths A, B, L, D, G "
-                         "and R here")
+                    help="write torch.profiler tables of paths A, B, L, D, G, "
+                         "R and K here")
     args = ap.parse_args()
+    t_run0 = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1021,14 +1471,7 @@ def main():
     del blocks_b
 
     def dense(D, E):
-        G, m = D.shape[0], D.shape[1]
-        T = torch.zeros((G, m, G, m), dtype=f64, device=dev)
-        gi = torch.arange(G, device=dev)
-        T[gi, :, gi, :] = D.double()
-        if G > 1:
-            T[gi[:-1] + 1, :, gi[:-1], :] = E.double()
-            T[gi[:-1], :, gi[:-1] + 1, :] = E.double().transpose(1, 2)
-        return T.reshape(G * m, G * m)
+        return _dense_tridiag(D.double(), E.double())
 
     k3_abs = 0.0
     for label, D_, E_, r_ in (("stage_tridiag_ab", Dt, Et, rt),
@@ -1104,6 +1547,22 @@ def main():
                           f"{Gw * mw}^2) "
                           f"{kw_lib_ms:.4f} ms, bound {kw_bound:.5f} ms "
                           f"({kw_by})")
+
+    # the single right-hand side as a 3-D r (q = 1) runs the same kernel
+    # instance: the same bits as the 2-D answer, at path B's shape, in f32
+    # and f64
+    for dtype_b in (f32, f64):
+        Db, Eb, rb = (a.to(dtype_b).contiguous() for a in (Dm, Em, rm))
+        x2 = tridiag_solve.tridiag_solve(Db, Eb, rb)
+        x3 = tridiag_solve.tridiag_solve(Db, Eb, rb[:, :, None].contiguous())
+        torch.cuda.synchronize()
+        _log("tridiag_solve", f"path B (G, m, q)=({Gb}, {mb}, 1) {dtype_b} as "
+                              f"a 3-D r: bitwise equal to the 2-D answer: "
+                              f"{torch.equal(x3[..., 0], x2)}")
+        if x3.shape != (Gb, mb, 1) or not torch.equal(x3[..., 0], x2):
+            raise AssertionError(f"tridiag_solve: r (G, m, 1) {dtype_b} does "
+                                 f"not give r (G, m)'s bits")
+    del Db, Eb, rb, x2, x3
 
     # ---- 10. reference: a small f64 trajectory solve, card vs CPU ----
     results = []
@@ -1608,6 +2067,9 @@ def main():
     # systems' sizes ----
     k2_pg = posegraph_paths(dev, run_phase, check_spd, phases, args.profile)
 
+    # ---- 11l. paths J, K, K64, N and U: slice D, inertial ----
+    vi = inertial_paths(dev, run_phase, check_spd, phases, args.profile)
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -1677,10 +2139,10 @@ def main():
     launches_of = {"A": launches_a, "B": launches_b, "L": launches_l,
                    "I": launches_i, "E": launches_e,
                    **{k: v["launches"] for k, v in phases.items()
-                      if "launches" in v}}
+                      if "launches" in v}, **vi["launches"]}
     by_path = {name: {path: n[name] for path, n in launches_of.items()
                       if n[name]}
-               for name in ("ba_assemble", "spd_solve")}
+               for name in ("ba_assemble", "spd_solve", "tridiag_solve")}
     kernels = [
         {"name": "ba_assemble", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/ba_assemble.cu",
@@ -1721,26 +2183,31 @@ def main():
          "launches_by_path": by_path["spd_solve"],
          "max_abs_err": max(k2_abs, *(k["max_abs_err"] for k in
                                      (*k2_big.values(), *k2w.values(),
-                                      *k2_pg.values()))),
+                                      *k2_pg.values(),
+                                      *vi["spd"].values()))),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
          "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "n6144_path_d": k2_big["D"], "n6144_path_g": k2_big["G"],
          **{f"path_w_{name}": k for name, k in k2w.items()},
-         **{f"path_{name}": k for name, k in k2_pg.items()}},
+         **{f"path_{name}": k for name, k in k2_pg.items()},
+         **vi["spd"]},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",
-         "launches": launches_b["tridiag_solve"] + launches_i["tridiag_solve"],
-         "launches_by_path": {"B": launches_b["tridiag_solve"],
-                              "I": launches_i["tridiag_solve"]},
-         "max_abs_err": k3_abs,
+         "launches": sum(by_path["tridiag_solve"].values()),
+         "launches_by_path": by_path["tridiag_solve"],
+         "max_abs_err": max(k3_abs, *(k["max_abs_err"]
+                                      for k in vi["tridiag"].values())),
          "ms": k3_ms, "plain_ms": k3_plain_ms, "device_ms": k3_device_ms,
          "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
          "m192": {"ms": kw_ms, "plain_ms": kw_plain_ms,
                   "device_ms": kw_device_ms, "bound_ms": kw_bound,
-                  "bound_by": kw_by, "library_ms": kw_lib_ms}},
+                  "bound_by": kw_by, "library_ms": kw_lib_ms},
+         **{name: {**k, "launches": by_path["tridiag_solve"].get(path, 0)}
+            for name, path in (("path_K_q7", "K"), ("path_K_cov_q6", "K_cov"))
+            for k in (vi["tridiag"][name],)}},
         {"name": "undistort", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/undistort.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_undistort.py:23",
@@ -1749,6 +2216,8 @@ def main():
          "bound_ms": k4_bound, "bound_share": k4_bound / k4_device_ms,
          "bound_by": k4_by, "library_ms": None},
     ]
+    _log("run", f"wall time {time.perf_counter() - t_run0:.1f} s, the "
+                f"kernels' build included")
     print(json.dumps({"kernels": kernels,
                       "ms_per_lm_iter": ms_per_iter_a,
                       "ms_per_lm_iter_b": ms_per_iter_b,

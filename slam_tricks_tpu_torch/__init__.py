@@ -18,13 +18,23 @@ smoother (``solvers.sliding_window``); V, posterior covariances
 dense SE(3) solve (``solvers.posegraph.solve_pose_graph``), T, the chain
 solver (``solve_pose_graph_chain``), R, the relative-state solver
 (``solve_pose_graph_relative``), and S, the Sim(3) scale-drift graph
-(``solvers.posegraph_sim3.solve_pose_graph_sim3``).
+(``solvers.posegraph_sim3.solve_pose_graph_sim3``); the inertial slice: J,
+IMU preintegration (``estimation.preintegrate``), K, the chain VI smoother
+(``estimation.solve_vi_chain``, ``vi_chain_covariances``), the dense VI
+smoother (``solve_vi_smoother``, held to K at 64 keyframes: K64) and N,
+visual-inertial bundle adjustment (``solve_vi_ba``), both through the
+generic LM solver (``solvers.lm``), and U, the visual-inertial
+initializer, the SE(3) ESKF and the strapdown INS (``vi_initialize``,
+``filter_trajectory``, ``mechanize_trajectory``).
 
 - ``manifolds``  SO(2), SE(2), SO(3), SE(3) and Sim(3), batched over
                  leading dimensions, and the manifold combinators
 - ``sim``        the st20 cube-room, trajectory and loop-closure scenes
                  and the spiral pose graph (numpy core, torch tensors out,
                  on the card unless ``device="cpu"``)
+- ``estimation`` IMU preintegration, the chain and dense VI smoothers,
+                 VI bundle adjustment, the VI initializer, the ESKF and
+                 the INS (st4, st14, st23)
 - ``solvers``    ``schur_flat_sm.solve_ba_flat_sm``,
                  ``banded_flat.solve_ba_banded`` (with the stored
                  block-tridiagonal factor and the banded covariances),
@@ -32,8 +42,9 @@ solver (``solve_pose_graph_chain``), R, the relative-state solver
                  ``incremental.smoother_init`` / ``smoother_arrive``,
                  ``schur.solve_ba`` with ``pcg``, ``schur_flat.solve_ba_flat``
                  with ``pcg_flat``, ``covariance.ba_covariances``,
-                 ``sliding_window.run_sliding_window``, and the pose-graph
-                 LM solvers of ``posegraph`` and ``posegraph_sim3``
+                 ``sliding_window.run_sliding_window``, the pose-graph
+                 LM solvers of ``posegraph`` and ``posegraph_sim3``, and
+                 ``lm.levenberg_marquardt`` over any manifold
 - ``residuals``  ``camera``: pinhole intrinsics, radial-tangential
                  distortion; ``robust``: the robust losses of ``loss=``;
                  ``posegraph``: the relative SE(3) and Sim(3) factors;
@@ -44,8 +55,11 @@ solver (``solve_pose_graph_chain``), R, the relative-state solver
                  the hand-written CUDA kernels and their plain torch versions:
                  ``ba_assemble`` (linearize + assemble), ``spd_solve``
                  (reduced camera system), ``tridiag_solve`` (block-tridiagonal
-                 reduced camera system), ``undistort`` (Newton undistortion)
-- ``interop``    numpy / JAX-package state -> the port's tensors
+                 systems, one or many right-hand sides), ``undistort``
+                 (Newton undistortion)
+- ``interop``    numpy / JAX-package state -> the port's tensors (also the
+                 preintegrated segments, the VI simulation, the ESKF and
+                 INS states)
 
 Importing the package needs neither CUDA nor ``nvcc``: the kernels are built
 with ``nvcc`` at their first launch on a CUDA tensor (``ops/_build.py``).

@@ -1,6 +1,7 @@
 """The JAX package's state as the port's tensors.
 
 Each function takes the JAX package's objects (``se3.SE3``, ``sim3.Sim3``,
+``PreintegratedImu``, ``ViSimData``, ``ESKFState``, ``INSState``,
 ``PoseGraphProblem``, ``posegraph.ChainGraphWork``, ``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
 ``loop_flat.LoopWork``, ``schur_flat.FlatWork``, ``pcg_flat.PCGWork``,
 ``schur.TrackPairs``, ``pcg.BandPairs``, ``sliding_window.WindowPrior``,
@@ -15,6 +16,10 @@ import numpy as np
 import torch
 
 from slam_tricks_tpu_torch.device import resolve
+from slam_tricks_tpu_torch.estimation.eskf import ESKFState
+from slam_tricks_tpu_torch.estimation.ins import INSState
+from slam_tricks_tpu_torch.estimation.preintegration import PreintegratedImu
+from slam_tricks_tpu_torch.estimation.vi_smoother import ViSimData
 from slam_tricks_tpu_torch.manifolds.se3 import SE3
 from slam_tricks_tpu_torch.manifolds.sim3 import Sim3
 from slam_tricks_tpu_torch.ops.ba_assemble import layout_index
@@ -181,3 +186,27 @@ def band_pairs_from_jax(band_pairs, device=None):
 
 def window_prior_from_jax(prior, device=None):
     return WindowPrior(*(tensor(a, device) for a in prior))
+
+
+def preintegrated_from_jax(pre, device=None):
+    """PreintegratedImu, every field batched as the JAX package's."""
+    return PreintegratedImu(*(tensor(f, device) for f in pre))
+
+
+def vi_sim_from_jax(sim, device=None):
+    """ViSimData: the poses as SE3, dt a float."""
+    return ViSimData(poses_from_jax(sim.poses_true, device),
+                     tensor(sim.vels_true, device), tensor(sim.gyro, device),
+                     tensor(sim.accel, device), float(sim.dt),
+                     poses_from_jax(sim.obs_poses, device),
+                     tensor(sim.bg_true, device), tensor(sim.ba_true, device))
+
+
+def eskf_state_from_jax(state, device=None):
+    """ESKFState with T (SE3) and P (6, 6)."""
+    return ESKFState(poses_from_jax(state.T, device), tensor(state.P, device))
+
+
+def ins_state_from_jax(state, device=None):
+    """INSState: lat, lon, h, v_ned (3,), q_nb (4,)."""
+    return INSState(*(tensor(f, device) for f in state))

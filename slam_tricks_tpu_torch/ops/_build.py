@@ -36,8 +36,8 @@ _BA = [_P] * 10 + [_I] * 5 + [_D, _D] + [_P] * 7 + [_I, _P]
 # spd_solve: S, b, A (scratch), yz (scratch), x, flags (scratch), n, stream
 _SPD = [_P] * 6 + [_I, _P]
 # tridiag_solve: D, E, r, store, lev (scratch), work (tile scratch or NULL),
-#                x, G, m, stream
-_TRI = [_P] * 7 + [_I, _I, _P]
+#                x, G, m, q, stream
+_TRI = [_P] * 7 + [_I, _I, _I, _P]
 
 
 def _undistort(scalar):

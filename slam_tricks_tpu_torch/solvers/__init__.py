@@ -3,8 +3,10 @@ the banded trajectory solver (path B), the loop-closure solver (path L),
 the incremental smoother on the banded layout (path I), the
 observation-list reference solver and its PCG (paths O and D), the flat
 layout and its PCG (paths F and P), the sliding-window smoother (path W),
-the posterior covariances (path V), and the pose graphs: dense SE(3)
-(path Q), chain (path T), relative-state (path R) and Sim(3) (path S)."""
+the posterior covariances (path V), the pose graphs: dense SE(3)
+(path Q), chain (path T), relative-state (path R) and Sim(3) (path S),
+and the generic Levenberg-Marquardt solver over a manifold (``lm``, which
+the dense VI smoother and VI bundle adjustment run)."""
 
 from slam_tricks_tpu_torch.solvers.banded_flat import (  # noqa: F401
     BandedWork,
@@ -12,12 +14,14 @@ from slam_tricks_tpu_torch.solvers.banded_flat import (  # noqa: F401
     banded_covariances,
     banded_pose_covariances,
     block_tridiag_factor,
+    block_tridiag_solve,
     block_tridiag_factor_extend,
     build_banded_work,
     solve_ba_banded,
     tridiag_backward,
     tridiag_forward,
 )
+from slam_tricks_tpu_torch.solvers.common import SolveResult  # noqa: F401
 from slam_tricks_tpu_torch.solvers.covariance import (  # noqa: F401
     ba_covariances,
 )
@@ -29,6 +33,7 @@ from slam_tricks_tpu_torch.solvers.incremental import (  # noqa: F401
     smoother_arrive,
     smoother_init,
 )
+from slam_tricks_tpu_torch.solvers.lm import levenberg_marquardt  # noqa: F401
 from slam_tricks_tpu_torch.solvers.loop_flat import (  # noqa: F401
     LoopWork,
     build_loop_work,

@@ -33,7 +33,9 @@ extension and the two substitutions) is what the loop-closure and the
 incremental solvers build on; it is plain torch (the JAX package computes
 it outside any Pallas kernel too): a sequential block-Cholesky loop over
 the G super-blocks, and substitutions as affine prefix scans of batched
-matrix products, as in the JAX package. The covariances (``banded_covariances``) are the
+matrix products, as in the JAX package. ``block_tridiag_solve`` is the
+JAX package's name of the block-tridiagonal solve (one or many right-hand
+sides), which the VI chain solver calls. The covariances (``banded_covariances``) are the
 Takahashi recursion on the super-blocks, plain torch.
 """
 
@@ -294,6 +296,15 @@ def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
     rm = torch.zeros((Dm.shape[0] * Kb, 6), dtype=b.dtype, device=b.device)
     rm[:C] = b
     return Dm, Em, rm.view(Dm.shape[:2]), hinv, dpp, dll, free
+
+
+def block_tridiag_solve(D, E, r):
+    """Solve the SPD block-tridiagonal system D (G, m, m), E (G-1, m, m)
+    (E[g] = T[g+1, g]) for r (G, m) or (G, m, q): ``ops.tridiag_solve``,
+    block cyclic reduction (the CUDA kernel on the card, its plain version
+    on the CPU). The JAX package's ``method`` ("cr", "scan", "pallas") only
+    picks its implementation of this same solve."""
+    return tridiag_solve(D.contiguous(), E.contiguous(), r.contiguous())
 
 
 def _solve_banded(Hpp, gp, Hll, gl, W, lam, fixed_mask, bw: BandedWork):

@@ -1,6 +1,19 @@
-"""Shared solver plumbing."""
+"""Shared solver plumbing: full-precision products, fixed-order sums,
+the associative scan, and the generic solvers' tangent-space linearization
+and damped normal-equation solve (port of
+``slam_tricks_tpu/solvers/common.py``).
+
+Solvers linearize ``residual_fn`` through the manifold retraction at
+delta = 0: r(delta) = residual_fn(retract(x, delta), *args),
+J = dr/ddelta at 0, so Jacobians come out in the tangent space.
+"""
+
+from typing import NamedTuple
 
 import torch
+
+from slam_tricks_tpu_torch.ops.smallchol import cho_solve_small
+from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
 
 
 def set_full_precision():
@@ -73,3 +86,64 @@ def associative_scan(comb, xs):
         y[1::2] = o
         out.append(y)
     return tuple(out)
+
+
+# ---- the generic NLLS solvers (solvers/lm.py) ----
+
+class SolveResult(NamedTuple):
+    """Final state of an NLLS solve."""
+    x: object
+    cost: torch.Tensor        # final 0.5 ||r||^2
+    iterations: int           # iterations actually executed
+    converged: bool           # a stop test held (not the iteration cap)
+    grad_norm: torch.Tensor   # ||J^T r||_inf at the last linearization
+
+
+def ata(J):
+    """JᵀJ of J (k, n); run with TF32 off (``set_full_precision``)."""
+    return J.mT @ J
+
+
+def atb(J, r):
+    """Jᵀr of J (k, n) and r (k,)."""
+    return J.mT @ r
+
+
+def leaves(x):
+    """The tensors of a nest of tuples (NamedTuples included), in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [leaf for item in x for leaf in leaves(item)]
+
+
+def linearize(residual_fn, manifold, x, args=()):
+    """(r0 (k,), J (k, dim)) in tangent coordinates: forward-mode
+    ``torch.func.jacfwd`` of r(retract(x, delta)) at delta = 0, r0 from
+    the same pass. residual_fn must not write in place."""
+    x0 = leaves(x)[0]
+    zero = torch.zeros(manifold.dim, dtype=x0.dtype, device=x0.device)
+
+    def r_of_delta(d):
+        r = residual_fn(manifold.retract(x, d), *args).reshape(-1)
+        return r, r
+
+    J, r0 = torch.func.jacfwd(r_of_delta, has_aux=True)(zero)
+    return r0, J
+
+
+def solve_damped_normal(H, g, lam, use_marquardt_scaling=True):
+    """Solve (H + lam D) delta = -g, D = diag(max(diag H, 1e-12))
+    (Marquardt scaling) or I, by Cholesky: for n <= 16 the unrolled
+    ``ops.smallchol``, above through ``ops.spd_solve`` (the CUDA kernel on
+    the card). Returns (delta, bad): a non-finite delta (a factor that is
+    not positive definite gives NaN) becomes a zero step with bad True,
+    the JAX package's semantics."""
+    n = H.shape[0]
+    if use_marquardt_scaling:
+        D = torch.diag(torch.clamp_min(torch.diagonal(H), 1e-12))
+    else:
+        D = torch.eye(n, dtype=H.dtype, device=H.device)
+    A = H + lam * D
+    delta = cho_solve_small(A, -g) if n <= 16 else spd_solve(A, -g)
+    bad = ~torch.isfinite(delta).all()
+    return torch.where(bad, torch.zeros_like(delta), delta), bad

@@ -12,14 +12,17 @@ another than the plain version's index_add_; two launches agree bitwise);
 spd_solve 5e-6 in f32 and 1e-9 in f64 on well-conditioned SPD systems
 (two Cholesky solves, tiles against cuSOLVER's blocking);
 tridiag_solve 1e-4 in f32 and 1e-9 in f64 on well-conditioned systems (the
-same cyclic reduction, sums in another order); ba_assemble with each robust
+same cyclic reduction, sums in another order), with one right-hand side and
+with q up to 16 (a 3-D r with q = 1 gives the 2-D answer's bits, q = 17 is
+refused); ba_assemble with each robust
 loss as without one;
 undistort 2.5e-4 px in f32 (a few ulp at 700 px: the kernel's steps are
 fused multiply-adds with an approximate reciprocal of the determinant) and
 1e-9 px in f64; the f64 solves (paths A, B, the loop-closure solve, the
 incremental stream, schur.solve_ba dense and paired, schur_flat dense and
-PCG, a sliding-window shift, and the pose graphs' dense, chain,
-relative-state and Sim(3) solves) to 1e-8 in the poses, as against JAX; two
+PCG, a sliding-window shift, the pose graphs' dense, chain,
+relative-state and Sim(3) solves, and the VI smoothers, chain with its
+covariances and dense) to 1e-8 in the poses, as against JAX; two
 f32 solves of paths A and B give the same bits; ba_assemble at the large-C
 grid (1024 cameras, K = 464) as above, and spd_solve at n = 6144."""
 
@@ -329,6 +332,54 @@ def test_tridiag_kernel_non_spd_gives_nan():
     torch.cuda.synchronize()
     assert torch.isnan(x).any()
     assert torch.isnan(tridiag_solve.tridiag_solve_plain(D, E, r)).any()
+
+
+def _tridiag_rhs(G, m, q, seed, dtype, device):
+    D, E, _ = _tridiag_system(G, m, seed, dtype, device)
+    r = np.random.default_rng(seed + 1).normal(size=(G, m, q))
+    return D, E, torch.as_tensor(r, dtype=dtype, device=device)
+
+
+# many right-hand sides r (G, m, q): the VI chain's (1024, 9, 7) and
+# (1024, 9, 6), odd G (1023, 13, 5), one block, q up to MAX_Q = 16; m = 96
+# f64 with q = 16 and m = 192 take the global scratch
+@pytest.mark.parametrize("G, m, q, dtype, tol", [
+    (1024, 9, 7, torch.float32, 1e-4), (1024, 9, 6, torch.float64, 1e-9),
+    (1023, 9, 7, torch.float32, 1e-4), (1023, 9, 7, torch.float64, 1e-9),
+    (13, 9, 16, torch.float32, 1e-4), (13, 9, 16, torch.float64, 1e-9),
+    (5, 48, 6, torch.float32, 1e-4), (1, 9, 7, torch.float64, 1e-9),
+    (127, 48, 1, torch.float32, 1e-4), (3, 96, 16, torch.float64, 1e-9),
+    (2, 192, 7, torch.float32, 1e-4)])
+def test_tridiag_kernel_many_rhs_matches_plain(G, m, q, dtype, tol):
+    dev = require_cuda()
+    D, E, r = _tridiag_rhs(G, m, q, G + m + q, dtype, dev)
+    ref = tridiag_solve.tridiag_solve_plain(D, E, r)
+    before = tridiag_solve.LAUNCHES
+    x = tridiag_solve.tridiag_solve(D, E, r)
+    torch.cuda.synchronize()
+    assert tridiag_solve.LAUNCHES == before + 1
+    assert x.shape == (G, m, q) and x.dtype == dtype
+    assert rel_err(x, ref) < tol
+
+
+def test_tridiag_kernel_one_rhs_as_3d_is_bitwise_2d():
+    """r (G, m, 1) runs the single right-hand side's instance: the same
+    bits as r (G, m), path B's shape."""
+    dev = require_cuda()
+    D, E, r = _tridiag_system(128, 48, 7, torch.float32, dev)
+    x2 = tridiag_solve.tridiag_solve(D, E, r)
+    x3 = tridiag_solve.tridiag_solve(D, E, r[..., None].contiguous())
+    torch.cuda.synchronize()
+    assert x3.shape == (128, 48, 1)
+    assert torch.equal(x3[..., 0], x2)
+
+
+def test_tridiag_kernel_refuses_too_many_rhs():
+    dev = require_cuda()
+    D, E, r = _tridiag_rhs(4, 9, tridiag_solve.MAX_Q + 1, 0, torch.float32,
+                           dev)
+    with pytest.raises(ValueError):
+        tridiag_solve.tridiag_solve(D, E, r)
 
 
 def test_tridiag_kernel_refuses_too_large_blocks():
@@ -692,3 +743,56 @@ def test_pose_graph_solve_on_cuda_matches_cpu(path):
     assert rel_err(card.cost, cpu.cost) < 1e-8
     for a, b in zip(card.poses, cpu.poses):
         assert float((a.cpu() - b).abs().max()) < 1e-8
+
+
+def _vi_problem(K, device):
+    from slam_tricks_tpu_torch.estimation import vi_smoother
+
+    sim = vi_smoother.simulate_vi(n_keyframes=K, samples_per_seg=20,
+                                  dt=0.005, sigma_g=2e-4, sigma_a=2e-3,
+                                  obs_rot_noise=0.005, obs_trans_noise=0.01,
+                                  seed=3, device=device)
+    b0 = torch.zeros(6, dtype=torch.float64, device=device)
+    pre = vi_smoother.preintegrate_segments(sim, b0[:3], b0[3:],
+                                            sigma_g=2e-4, sigma_a=2e-3)
+    return sim, pre, b0
+
+
+@pytest.mark.parametrize("solver", ["chain", "dense"])
+def test_vi_smoother_on_cuda_matches_cpu(solver):
+    """The chain (tridiag_solve, q = 7) and dense (spd_solve, n = 186) VI
+    smoothers at K = 20 in f64, 4 iterations (before the f64 floor), and
+    the chain's covariances (tridiag_solve, q = 6): card against CPU to
+    1e-8."""
+    from slam_tricks_tpu_torch.estimation import vi_chain, vi_smoother
+
+    dev = require_cuda()
+    outs, launches = [], []
+    for device in ("cpu", dev):
+        sim, pre, b0 = _vi_problem(20, device)
+        before = (tridiag_solve.LAUNCHES, spd_solve.LAUNCHES)
+        if solver == "chain":
+            out = vi_chain.solve_vi_chain(pre, sim.obs_poses, sim.obs_poses,
+                                          sim.vels_true, b0, max_iters=4,
+                                          obs_rot_sigma=0.005,
+                                          obs_trans_sigma=0.01)
+            cov = vi_chain.vi_chain_covariances(
+                pre, sim.obs_poses, out.poses, out.vels, out.bias,
+                obs_rot_sigma=0.005, obs_trans_sigma=0.01)
+            it = out.it
+        else:
+            out = vi_smoother.solve_vi_smoother(
+                pre, sim.obs_poses, sim.obs_poses, sim.vels_true, b0,
+                max_iters=4, obs_rot_sigma=0.005, obs_trans_sigma=0.01)
+            cov, it = (), out.iterations
+        torch.cuda.synchronize()
+        launches.append((tridiag_solve.LAUNCHES - before[0],
+                         spd_solve.LAUNCHES - before[1]))
+        outs.append((out, cov, it))
+    (cpu, cov_c, it_c), (card, cov_g, it_g) = outs
+    assert it_g == it_c == 4
+    assert launches[1] == ((5, 0) if solver == "chain" else (0, 4))
+    assert rel_err(card.cost, cpu.cost) < 1e-8
+    for a, b in ((card.poses.t, cpu.poses.t), (card.poses.R, cpu.poses.R),
+                 (card.bias, cpu.bias), *zip(cov_g, cov_c)):
+        assert rel_err(a, b) < 1e-8
