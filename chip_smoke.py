@@ -72,6 +72,18 @@ through the kernels, each with every launch count set to 0 just before it:
   landmarks from a 0.7x-scaled start (float64, spd_solve at n = 294;
   scale within 0.03 of 1); U, vi_initialize, the ESKF over 80 steps and
   the INS over 6000 (float64, no kernel, the JAX tests' gates);
+- the geometric-vision paths: Z, Zhang calibration (bench.py's 9-view
+  board, noise 0.3, seed 7, float32: the closed-form start and 30 LM
+  iterations on the card, n = 63, through spd_solve; the JAX tests' float64
+  scenes with their gates); X, the two-view pipeline (2000 points, noise
+  1e-3, seed 8, float32, 15 refinement iterations through ba_assemble at
+  (K 2, L 2000) and spd_solve at n = 12, and the start alone); M, batched
+  PnP (8192 problems x 32 points, 10 iterations, float32); H, SE(3) ICP
+  (8192 points, 10 sweeps, float32); Y, the generic Newton undistortion
+  of 65,536 float32 pixels held to the undistort kernel; RS, RANSAC on the
+  50%-outlier parabola and robust_fundamental on 80 matches with 20
+  corrupted (float64, generators on the card); spd_solve against plain at
+  n = 63 and 12 in float32 and float64, ba_assemble at X's grid;
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -84,7 +96,8 @@ earlier run; `device_ms` on the card alone, its calls queued behind a head
 start of matrix products) and bound, each phase's ms per LM iteration,
 iterations, final cost and launches, the card's name and power limit from
 nvidia-smi, and last the JSON status line. With --profile DIR it also writes
-torch.profiler tables of paths A, B, L, D, G, R and K to DIR.
+torch.profiler tables of paths A, B, L, D, G, R and K to DIR. Paths M, H,
+Y and RS run no kernel.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -1047,6 +1060,407 @@ def inertial_paths(dev, run_phase, check_spd, phases, profile_dir=None):
                      f"{wall:.1f} s of wall time")
     phases["inertial"] = {"wall_s": wall}
     return {"tridiag": tri, "spd": spd, "launches": launches_of}
+
+
+# ---- slice E: geometric vision (paths Z, X, M, H, Y and RS) ----
+
+GEO_Z = dict(n_views=9, noise=0.3, seed=7)      # bench.py:582-631, f32
+GEO_Z_FX, GEO_Z_FY = 600.0, 590.0
+Z_F_ERR = 1.0               # Z: |fx - 600| and |fy - 590| after the
+#                             refinement (tests/test_posegraph_calib.py:51)
+Z_RMS_MAX = 0.5             # Z: RMS reprojection error in px (noise 0.3)
+Z8_DIST = (-0.25, 0.07, 0.0, 1e-4, -5e-5)   # tests/test_posegraph_calib.py:
+Z8_RMS_MAX = 0.15           # 42-63: seed 8, noise 0.1, f64, 60 iterations;
+Z8_CURVE_PX = 0.5           # the distortion curve within 0.5 px to r 0.38
+Z9_RMS_MAX, Z9_FX_ERR = 1e-8, 1e-5   # :66-70: seed 9, noiseless, 6 views
+GEO_X = dict(n_points=2000, noise=1e-3, seed=8)   # bench.py:655-696, f32
+X_POSE_TOL = 2e-3           # R and t / |t| (tests/test_initialization.py:69,
+X_GATE_NOISE = 1e-4         # whose scene has noise 1e-4: at the bench's 1e-3
+#                             the optimum's t is 2.37e-3 off the truth, the
+#                             JAX package's f64 solve too; there the f32
+X_VS_F64_TOL = 1e-4         # solve is held to the f64 one of the scene
+X_START_FACTOR = 10.0       # ba_assemble at X's start: kernel's error off
+X_START_EPS = 1e-6          # f64 <= this x plain's + this x the largest
+GEO_M = dict(batch=8192, n_obs=32, iters=10, seed=4)   # bench.py:425-453
+M_COST_MAX = 1e-12          # M: the batch's largest cost, f32, noiseless data
+GEO_H = dict(n=8192, sweeps=10, seed=6)          # bench.py:477-505, f32
+H_POSE_TOL = 1e-4
+GEO_Y_PX = 65_536           # bench.py:391-401 at its smoke size, f32
+RS_PARAB_TOL = 1e-6         # tests/test_initialization.py:109-126
+RS_SIGMA2 = 4e-8            # tests/test_robust_epipolar.py:15-38
+RS_CLEAN_KEPT = 0.9
+RS_SAMPSON_RMS = 5e-4
+
+
+def geometry_paths(dev, run_phase, check_spd, check_assemble, phases):
+    """Paths Z (Zhang calibration), X (the two-view pipeline), M (batched
+    PnP), H (SE(3) ICP), Y (generic Newton undistortion) and RS (RANSAC and
+    robust_fundamental), each run with every launch count set to 0 just
+    before it (run_phase) and gated. spd_solve is held against plain
+    (check_spd) at n = 63 (Z: f32 on the bench's scene, f64 on the JAX
+    test's distorted one) and n = 12 (X, f32 and f64), ba_assemble
+    (check_assemble) at X's (K 2, L 2000) grid. Returns {"spd": {label:
+    numbers}, "assemble": {label: numbers}, "launches": {path: counts}}."""
+    import numpy as np
+    import torch
+
+    from slam_tricks_tpu_torch.initialization import robust_epipolar
+    from slam_tricks_tpu_torch.initialization.ransac import ransac
+    from slam_tricks_tpu_torch.initialization.zhang import \
+        calibrate_closed_form
+    from slam_tricks_tpu_torch.manifolds import se3
+    from slam_tricks_tpu_torch.ops import ba_assemble
+    from slam_tricks_tpu_torch.pipelines import calibration, two_view
+    from slam_tricks_tpu_torch.residuals import (camera, epipolar, icp,
+                                                 simple)
+    from slam_tricks_tpu_torch.sim import make_calib_scene, make_two_view
+    from slam_tricks_tpu_torch.solvers import common, schur_flat_sm
+    from slam_tricks_tpu_torch.solvers.pnp import solve_pnp_batched
+
+    f32, f64 = torch.float32, torch.float64
+    t_start = time.perf_counter()
+    spd, asm, launches_of = {}, {}, {}
+
+    # ---- Z: Zhang calibration, the bench's f32 scene on the card ----
+    cs = make_calib_scene(dtype=f32, device=dev, **GEO_Z)
+    intr0, _, poses0 = calibrate_closed_form(cs.board_pts, cs.image_pts)
+    init_ms = _time_ms(lambda: calibrate_closed_form(cs.board_pts,
+                                                     cs.image_pts),
+                       rounds=3, reps=3)
+    fx0_err = abs(float(intr0.fx) - GEO_Z_FX)
+    costs_z = []
+    real_lm = calibration.levenberg_marquardt
+
+    def lm_recording(*a, **kw):     # the per-step costs of calibrate's LM
+        return real_lm(*a, callback=lambda it, c, lam: costs_z.append(c),
+                       **kw)
+
+    def refine(iters=30):
+        costs_z.clear()
+        calibration.levenberg_marquardt = lm_recording
+        try:
+            return calibration.calibrate(cs.board_pts, cs.image_pts,
+                                         max_iters=iters,
+                                         init=(intr0, poses0))
+        finally:
+            calibration.levenberg_marquardt = real_lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refine()                        # the first call, timed alone
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    res, _, launches, ms = run_phase("path Z", lambda costs: refine(),
+                                     iters_of=lambda o: o.iterations)
+    cz = [float(c) for c in costs_z]
+    refine_ms = ms * res.iterations
+    fx_err = abs(float(res.intrinsics.fx) - GEO_Z_FX)
+    fy_err = abs(float(res.intrinsics.fy) - GEO_Z_FY)
+    rms = float(res.rms_px)
+    _log("path Z", f"{GEO_Z['n_views']} views f32 (n = "
+                   f"{9 + 6 * GEO_Z['n_views']}): closed-form start "
+                   f"{init_ms:.3f} ms on the card (CUDA events), its "
+                   f"|fx - 600| {fx0_err:.4f}; refinement {res.iterations} LM"
+                   f" iterations, {refine_ms:.3f} ms ({ms:.4f} ms an "
+                   f"iteration; its first call {first_s:.3f} s, host clock,"
+                   f" after path K64's first use of torch.func), cost "
+                   f"{cz[0]:.6e} -> {cz[-1]:.6e} after the first step; "
+                   f"|fx - 600| {fx_err:.4f}, |fy - 590| "
+                   f"{fy_err:.4f} (gate < {Z_F_ERR}), RMS {rms:.4f} px (gate "
+                   f"< {Z_RMS_MAX}); launches {launches}")
+    _check_costs(cz, math.inf, "path Z")
+    if launches["spd_solve"] != res.iterations:
+        raise AssertionError(f"path Z: launches {launches} in "
+                             f"{res.iterations} iterations")
+    if not (fx_err < Z_F_ERR and fy_err < Z_F_ERR and rms < Z_RMS_MAX):
+        raise AssertionError(f"path Z: fx {fx_err}, fy {fy_err}, RMS {rms}")
+    launches_of["Z"] = launches
+    (calls,) = captured_calls([(common, "spd_solve")], lambda: refine(1))
+    spd["path_Z_n63_float32"] = {**check_spd(*calls[0], "path Z"),
+                                 "launches": launches["spd_solve"]}
+    phases["Z"] = {"init_ms": init_ms, "init_fx_err": fx0_err,
+                   "refine_ms": refine_ms, "ms_per_lm_iter": ms,
+                   "first_call_s": first_s, "iters": res.iterations,
+                   "final_cost": cz[-1], "fx_err": fx_err, "fy_err": fy_err,
+                   "rms_px": rms, "launches": launches}
+
+    # the JAX tests' f64 scenes on the card, with their gates
+    dist8 = camera.DistCoeffs(*Z8_DIST)
+    cs8 = make_calib_scene(n_views=9, noise=0.1, dist=dist8, seed=8,
+                           device=dev)
+    res8 = calibration.calibrate(cs8.board_pts, cs8.image_pts, max_iters=60)
+    r = torch.linspace(0.0, 0.38, 50, dtype=f64, device=dev)
+    curve = torch.stack([r, 0.6 * r], dim=1)
+    curve_px = float((camera.distort_normalized(dist8, curve)
+                      - camera.distort_normalized(res8.distortion, curve))
+                     .abs().max()) * cs8.fx
+    f8 = (abs(float(res8.intrinsics.fx) - cs8.fx),
+          abs(float(res8.intrinsics.fy) - cs8.fy))
+    cs9 = make_calib_scene(n_views=6, noise=0.0, seed=9, device=dev)
+    res9 = calibration.calibrate(cs9.board_pts, cs9.image_pts, max_iters=40)
+    fx9 = abs(float(res9.intrinsics.fx) - cs9.fx)
+    _log("path Z f64", f"seed 8 (distorted, noise 0.1): {res8.iterations} "
+                       f"iterations, RMS {float(res8.rms_px):.6f} px (gate < "
+                       f"{Z8_RMS_MAX}), |fx - 600| {f8[0]:.4f}, |fy - 590| "
+                       f"{f8[1]:.4f} (< {Z_F_ERR}), distortion curve "
+                       f"{curve_px:.4f} px (< {Z8_CURVE_PX}); seed 9 "
+                       f"(noiseless, 6 views): {res9.iterations} iterations, "
+                       f"RMS {float(res9.rms_px):.3e} (< {Z9_RMS_MAX}), "
+                       f"|fx - 600| {fx9:.3e} (< {Z9_FX_ERR})")
+    if not (float(res8.rms_px) < Z8_RMS_MAX and max(f8) < Z_F_ERR
+            and curve_px < Z8_CURVE_PX and float(res9.rms_px) < Z9_RMS_MAX
+            and fx9 < Z9_FX_ERR):
+        raise AssertionError("path Z f64: a gate of the JAX tests failed")
+    (calls,) = captured_calls([(common, "spd_solve")],
+                              lambda: calibration.calibrate(
+                                  cs8.board_pts, cs8.image_pts, max_iters=1))
+    spd["path_Z_n63_float64"] = check_spd(*calls[0], "path Z f64")
+    phases["Z"].update(f64_seed8_rms=float(res8.rms_px),
+                       f64_seed8_curve_px=curve_px,
+                       f64_seed9_rms=float(res9.rms_px))
+    del cs, cs8, cs9, res, res8, res9, calls
+
+    # ---- X: the two-view pipeline, 2000 points, f32 ----
+    tv = make_two_view(dtype=f32, device=dev, **GEO_X)
+    solve_x = lambda ri: two_view.solve_two_view(  # noqa: E731
+        tv.uv1, tv.uv2, refine_iters=ri)
+    solve_x(15)
+    out_x, _, launches, ms_x = run_phase(
+        "path X", lambda costs: solve_x(15), iters_of=lambda o: 1)
+    out0, _, launches0, ms_x0 = run_phase(
+        "path X init only", lambda costs: solve_x(0), iters_of=lambda o: 1)
+    t_ref = tv.T_12.t / tv.T_12.t.norm()
+    r_err = float((out_x.T_12.R - tv.T_12.R).abs().max())
+    t_err = float((out_x.T_12.t - t_ref).abs().max())
+    c15, c0 = float(out_x.final_cost), float(out0.final_cost)
+    n_ch = float(out_x.n_cheiral)
+    it_x = launches["spd_solve"]
+    # the 2e-3 gate's own noise (1e-4) on the same 2000-point scene, f32;
+    # at the bench's 1e-3 the optimum's t is ~2.4e-3 off the truth in both
+    # packages, so there t is held to the f64 solve of the same scene
+    tv_q = make_two_view(dtype=f32, device=dev, **{**GEO_X,
+                                                   "noise": X_GATE_NOISE})
+    out_q = two_view.solve_two_view(tv_q.uv1, tv_q.uv2, refine_iters=15)
+    tq_ref = tv_q.T_12.t / tv_q.T_12.t.norm()
+    q_err = max(float((out_q.T_12.R - tv_q.T_12.R).abs().max()),
+                float((out_q.T_12.t - tq_ref).abs().max()))
+    tv64 = make_two_view(dtype=f64, device=dev, **GEO_X)
+    out64 = two_view.solve_two_view(tv64.uv1, tv64.uv2, refine_iters=15)
+    vs64 = max(float((out_x.T_12.R.double() - out64.T_12.R).abs().max()),
+               float((out_x.T_12.t.double() - out64.T_12.t).abs().max()))
+    _log("path X", f"{GEO_X['n_points']} points f32: {ms_x:.3f} ms with the "
+                   f"refinement (15 iterations at most; {it_x} taken), "
+                   f"{ms_x0:.3f} ms init only (CUDA events); cost {c0:.6e} "
+                   f"-> {c15:.6e}; n_cheiral {n_ch:.0f}; |R - R_true| "
+                   f"{r_err:.3e} (gate {X_POSE_TOL}), |t - t_true| "
+                   f"{t_err:.3e} (the optimum's at noise 1e-3; against the "
+                   f"f64 solve {vs64:.3e}, gate {X_VS_F64_TOL}); at noise "
+                   f"{X_GATE_NOISE} R and t {q_err:.3e} off the truth (gate "
+                   f"{X_POSE_TOL}); launches {launches} (init only "
+                   f"{launches0})")
+    if not (n_ch == GEO_X["n_points"] and c15 <= c0 and r_err < X_POSE_TOL
+            and q_err < X_POSE_TOL and vs64 < X_VS_F64_TOL
+            and math.isfinite(c15)):
+        raise AssertionError(f"path X: n_cheiral {n_ch}, cost {c0} -> {c15},"
+                             f" R {r_err}, at noise {X_GATE_NOISE} {q_err}, "
+                             f"against f64 {vs64}")
+    if not (it_x >= 1 and launches["ba_assemble"] == it_x + 1
+            and launches0["ba_assemble"] == 1
+            and launches0["spd_solve"] == 0):
+        raise AssertionError(f"path X: launches {launches}, {launches0}")
+    launches_of["X"] = launches
+    asm_calls, spd_calls = captured_calls(
+        [(schur_flat_sm, "linearize_assemble"), (schur_flat_sm, "spd_solve")],
+        lambda: solve_x(1))
+    a_x = asm_calls[0]
+    # at the refinement's start every landmark sits at its two rays'
+    # midpoint, so its gradient gl is a cancelling sum, as at an optimum:
+    # the kernel is held to plain at X's grid with the points 1% further
+    # from camera 0, and at the start itself kernel and plain are each
+    # held to the plain version in f64 of the same inputs
+    moved = (*a_x[:2], a_x[2] * 1.01, *a_x[3:7])
+    asm["path_X"] = {**dict(zip(
+        ("err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
+        check_assemble(moved, a_x[7], "path X grid", a_x[8]))),
+        "grid": list(a_x[5].shape), "launches": launches["ba_assemble"]}
+    out_k = ba_assemble.linearize_assemble(*a_x[:7], a_x[7], a_x[8])
+    out_p = ba_assemble.linearize_assemble_plain(*a_x[:7], a_x[8])
+    out_64 = ba_assemble.linearize_assemble_plain(
+        *(a.double() if a.is_floating_point() else a for a in a_x[:7]),
+        a_x[8])
+    worst = 0.0
+    for name, k_, p_, r_ in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
+                                out_k, out_p, out_64):
+        ek = float((k_.double() - r_).abs().max())
+        ep = float((p_.double() - r_).abs().max())
+        eps = X_START_EPS * float(r_.abs().max())
+        worst = max(worst, ek / (X_START_FACTOR * ep + eps))
+        if not ek <= X_START_FACTOR * ep + eps:
+            raise AssertionError(f"ba_assemble path X start {name}: kernel "
+                                 f"{ek} off f64, plain {ep}")
+    _log("ba_assemble", f"path X start: kernel and plain against plain in "
+                        f"f64 on the same inputs, worst kernel error / "
+                        f"({X_START_FACTOR} x plain's + {X_START_EPS} x "
+                        f"max) {worst:.3e} (pass <= 1)")
+    asm["path_X"]["start_vs_f64"] = worst
+    spd["path_X_n12_float32"] = {**check_spd(*spd_calls[0], "path X"),
+                                 "launches": it_x}
+    (calls,) = captured_calls([(schur_flat_sm, "spd_solve")],
+                              lambda: two_view.solve_two_view(
+                                  tv64.uv1, tv64.uv2, refine_iters=1))
+    spd["path_X_n12_float64"] = check_spd(*calls[0], "path X f64")
+    phases["X"] = {"ms": ms_x, "ms_init_only": ms_x0, "iters": it_x,
+                   "final_cost": c15, "init_only_cost": c0,
+                   "n_cheiral": n_ch, "R_err": r_err, "t_err": t_err,
+                   "vs_f64": vs64, "gate_noise_err": q_err,
+                   "launches": launches}
+    del tv, tv64, tv_q, out_x, out0, out64, out_q, asm_calls, spd_calls, a_x
+    del calls
+
+    # ---- M: batched PnP, 8192 problems x 32 points, f32 ----
+    B, M_, iters_m = GEO_M["batch"], GEO_M["n_obs"], GEO_M["iters"]
+    rng = np.random.default_rng(GEO_M["seed"])
+
+    def T_(a):
+        return torch.as_tensor(a.astype(np.float32), device=dev)
+
+    pts = T_(rng.uniform([-2, -2, 4], [2, 2, 8], (B, M_, 3)))
+    T_true = se3.exp(T_(rng.normal(size=(B, 6)) * 0.2))
+    p_cam = se3.act(se3.SE3(T_true.R[:, None], T_true.t[:, None]), pts)
+    uv = p_cam[..., :2] / p_cam[..., 2:]
+    T0 = se3.retract(T_true, T_(rng.normal(size=(B, 6)) * 0.05))
+    def solve_m():
+        return solve_pnp_batched(T0, pts, uv, iters=iters_m)
+
+    solve_m()
+    out_m, _, launches, ms_m = run_phase("path M", lambda costs: solve_m(),
+                                         iters_of=lambda o: 1)
+    ms_m = min(ms_m, _time_ms(solve_m, rounds=3, reps=2))
+    cmax = float(out_m.cost.max())
+    _log("path M", f"{B} problems x {M_} points, {iters_m} GN iterations, "
+                   f"f32: {ms_m:.3f} ms a batch (CUDA events), "
+                   f"{B / ms_m * 1e3:.4e} problems/s, "
+                   f"{B * iters_m / ms_m * 1e3:.4e} GN iterations/s; max "
+                   f"cost {cmax:.3e} (gate < {M_COST_MAX}), iterations "
+                   f"{int(out_m.iterations.min())}-"
+                   f"{int(out_m.iterations.max())}; launches {launches}")
+    if not cmax < M_COST_MAX:
+        raise AssertionError(f"path M: max cost {cmax}")
+    phases["M"] = {"ms": ms_m, "problems_per_s": B / ms_m * 1e3,
+                   "gn_iters_per_s": B * iters_m / ms_m * 1e3,
+                   "max_cost": cmax, "iters": iters_m}
+    del pts, T_true, p_cam, uv, T0, out_m
+
+    # ---- H: SE(3) ICP, 8192 points, unknown correspondences, f32 ----
+    rng = np.random.default_rng(GEO_H["seed"])
+    src = T_(rng.normal(size=(GEO_H["n"], 3)))
+    T_h = se3.exp(torch.tensor([0.08, -0.05, 0.1, 0.15, -0.1, 0.05],
+                               dtype=f32, device=dev))
+    dst = se3.act(T_h, src)
+    def run_h():
+        return icp.icp_iterate(src, dst, n_outer=GEO_H["sweeps"])
+
+    run_h()
+    (R_h, t_h, _, idx_h), _, launches, ms_h = run_phase(
+        "path H", lambda costs: run_h(), iters_of=lambda o: 1)
+    rh_err = float((R_h - T_h.R).abs().max())
+    th_err = float((t_h - T_h.t).abs().max())
+    exact = float((idx_h == torch.arange(GEO_H["n"], device=dev)).double()
+                  .mean())
+    _log("path H", f"{GEO_H['n']} points f32, {GEO_H['sweeps']} sweeps: "
+                   f"{ms_h:.3f} ms (CUDA events); |R - R_true| {rh_err:.3e}, "
+                   f"|t - t_true| {th_err:.3e} (gate {H_POSE_TOL}); "
+                   f"association exact for {exact:.4f} of the points; "
+                   f"launches {launches}")
+    if not (rh_err < H_POSE_TOL and th_err < H_POSE_TOL):
+        raise AssertionError(f"path H: R {rh_err}, t {th_err}")
+    phases["H"] = {"ms": ms_h, "R_err": rh_err, "t_err": th_err,
+                   "sweeps": GEO_H["sweeps"], "exact_assoc": exact}
+    del src, dst, idx_h
+
+    # ---- Y: generic Newton undistortion against the undistort kernel ----
+    intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
+    dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
+                             1.76187114e-05)
+    px = torch.as_tensor(np.random.default_rng(3).uniform(
+        [50, 50], [700, 430], (GEO_Y_PX, 2)), dtype=f32, device=dev)
+    dpx = camera.distort_pixels(intr, dist, px).contiguous()
+    fast = camera.undistort_points_fast(intr, dist, dpx)     # the kernel
+    und, _, launches, ms_y = run_phase(
+        "path Y", lambda costs: camera.undistort_points_gn(intr, dist, dpx),
+        iters_of=lambda o: 1)
+    y_err = float((und - fast).abs().max())
+    ms_y = min(ms_y, _time_ms(lambda: camera.undistort_points_gn(
+        intr, dist, dpx), rounds=3, reps=3))
+    _log("path Y", f"{GEO_Y_PX} px f32, 5 exact Newton steps in plain torch:"
+                   f" {ms_y:.4f} ms ({GEO_Y_PX / ms_y * 1e3:.4e} px/s); max "
+                   f"|gn - kernel| {y_err:.3e} px (gate {UNDISTORT_TOL}), "
+                   f"round trip {float((und - px).abs().max()):.3e} px; "
+                   f"launches {launches}")
+    if not (und.shape == px.shape and y_err <= UNDISTORT_TOL):
+        raise AssertionError(f"path Y: {y_err} px against the kernel")
+    phases["Y"] = {"ms": ms_y, "px_per_s": GEO_Y_PX / ms_y * 1e3,
+                   "max_err_vs_kernel_px": y_err}
+    del px, dpx, fast, und
+
+    # ---- RS: RANSAC and robust_fundamental, f64, generators on the card --
+    rng = np.random.default_rng(7)
+    xs = rng.uniform(-3, 3, 300)
+    clean = xs ** 2 + 2 * xs + 3
+    outlier = rng.random(300) < 0.5
+    ys = np.where(outlier, clean + rng.uniform(-30, 30, 300), clean)
+    data = {"x": torch.as_tensor(xs, device=dev),
+            "y": torch.as_tensor(ys, device=dev)}
+    run_rs = lambda: ransac(  # noqa: E731
+        torch.Generator(device=dev).manual_seed(0), data,
+        min_fit=lambda d: simple.parabola_fit_lsq(d["x"], d["y"]),
+        residual_sq=lambda p, d: simple.parabola_residual(
+            p, d["x"], d["y"]) ** 2,
+        refit=lambda d, w: simple.parabola_fit_lsq(d["x"], d["y"], w),
+        subset_size=3, n_hyps=256, inlier_thresh_sq=0.01)
+    run_rs()
+    res_p, _, launches, ms_p = run_phase("path RS parabola",
+                                         lambda costs: run_rs(),
+                                         iters_of=lambda o: 1)
+    p_err = float((res_p.params - torch.tensor([1.0, 2.0, 3.0], dtype=f64,
+                                               device=dev)).abs().max())
+    s6 = make_two_view(n_points=80, noise=1e-4, seed=6, device=dev)
+    rng = np.random.default_rng(37)
+    uv1, uv2 = s6.uv1, s6.uv2.clone()
+    bad = rng.choice(80, 20, replace=False)
+    uv2[bad] += torch.as_tensor(rng.uniform(0.05, 0.3, size=(20, 2))
+                                * rng.choice([-1, 1], (20, 2)), device=dev)
+    run_rf = lambda: robust_epipolar.robust_fundamental(  # noqa: E731
+        uv1, uv2, sigma2=RS_SIGMA2, essential=True,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    run_rf()
+    (E, inl, _), _, launches_f, ms_f = run_phase(
+        "path RS robust_fundamental", lambda costs: run_rf(),
+        iters_of=lambda o: 1)
+    inl = inl.cpu().numpy()
+    keep = np.setdiff1d(np.arange(80), bad)
+    kept = float(inl[keep].mean())
+    samp = float(torch.sqrt(epipolar.sampson(E, uv1[keep], uv2[keep])
+                            .mean()))
+    _log("path RS", f"f64: RANSAC parabola (300 samples, 50% outliers, 256 "
+                    f"hypotheses) {ms_p:.3f} ms, |params - (1, 2, 3)| "
+                    f"{p_err:.3e} (gate {RS_PARAB_TOL}), {int(res_p.n_inliers)}"
+                    f" inliers; robust_fundamental (80 matches, 20 corrupted)"
+                    f" {ms_f:.3f} ms: corrupted kept {int(inl[bad].sum())} "
+                    f"(gate 0), clean kept {kept:.4f} (gate > "
+                    f"{RS_CLEAN_KEPT}), Sampson RMS {samp:.3e} (gate < "
+                    f"{RS_SAMPSON_RMS}); launches {launches}, {launches_f}")
+    if not (p_err < RS_PARAB_TOL and not inl[bad].any()
+            and kept > RS_CLEAN_KEPT and samp < RS_SAMPSON_RMS):
+        raise AssertionError("path RS: a gate failed")
+    phases["RS"] = {"ms_ransac": ms_p, "ms_robust_fundamental": ms_f,
+                    "params_err": p_err, "clean_kept": kept,
+                    "sampson_rms": samp}
+    wall = time.perf_counter() - t_start
+    _log("geometry", f"paths Z, X, M, H, Y and RS with their kernel checks: "
+                     f"{wall:.1f} s of wall time")
+    phases["geometry"] = {"wall_s": wall}
+    return {"spd": spd, "assemble": asm, "launches": launches_of}
 
 
 def main():
@@ -2070,6 +2484,9 @@ def main():
     # ---- 11l. paths J, K, K64, N and U: slice D, inertial ----
     vi = inertial_paths(dev, run_phase, check_spd, phases, args.profile)
 
+    # ---- 11m. paths Z, X, M, H, Y and RS: slice E, geometric vision ----
+    geo = geometry_paths(dev, run_phase, check_spd, check_assemble, phases)
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -2139,7 +2556,8 @@ def main():
     launches_of = {"A": launches_a, "B": launches_b, "L": launches_l,
                    "I": launches_i, "E": launches_e,
                    **{k: v["launches"] for k, v in phases.items()
-                      if "launches" in v}, **vi["launches"]}
+                      if "launches" in v}, **vi["launches"],
+                   **geo["launches"]}
     by_path = {name: {path: n[name] for path, n in launches_of.items()
                       if n[name]}
                for name in ("ba_assemble", "spd_solve", "tridiag_solve")}
@@ -2150,7 +2568,8 @@ def main():
          "launches": sum(by_path["ba_assemble"].values()),
          "launches_by_path": by_path["ba_assemble"],
          "max_abs_err": max(k1["err"], k1b["err"], k1l["err"], k1g["err"],
-                            k1p["err"], *(k["err"] for k in k1w.values())),
+                            k1p["err"], *(k["err"] for k in k1w.values()),
+                            geo["assemble"]["path_X"]["err"]),
          "loss_max_abs_err": loss_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "device_ms": k1["device_ms"],
@@ -2175,7 +2594,8 @@ def main():
                     "device_ms": k1p["device_ms"],
                     "bound_ms": k1p["bound_ms"], "bound_by": k1p["bound_by"]},
          **{f"path_w_{name}": {key: k[key] for key in k1_keys}
-            for name, k in k1w.items()}},
+            for name, k in k1w.items()},
+         "path_x": geo["assemble"]["path_X"]},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
@@ -2184,14 +2604,15 @@ def main():
          "max_abs_err": max(k2_abs, *(k["max_abs_err"] for k in
                                      (*k2_big.values(), *k2w.values(),
                                       *k2_pg.values(),
-                                      *vi["spd"].values()))),
+                                      *vi["spd"].values(),
+                                      *geo["spd"].values()))),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
          "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "n6144_path_d": k2_big["D"], "n6144_path_g": k2_big["G"],
          **{f"path_w_{name}": k for name, k in k2w.items()},
          **{f"path_{name}": k for name, k in k2_pg.items()},
-         **vi["spd"]},
+         **vi["spd"], **geo["spd"]},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",

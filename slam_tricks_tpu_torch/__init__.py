@@ -25,13 +25,19 @@ smoother (``solve_vi_smoother``, held to K at 64 keyframes: K64) and N,
 visual-inertial bundle adjustment (``solve_vi_ba``), both through the
 generic LM solver (``solvers.lm``), and U, the visual-inertial
 initializer, the SE(3) ESKF and the strapdown INS (``vi_initialize``,
-``filter_trajectory``, ``mechanize_trajectory``).
+``filter_trajectory``, ``mechanize_trajectory``); the geometric slice: Z,
+Zhang calibration (``pipelines.calibration.calibrate``), X, the two-view
+pipeline (``pipelines.solve_two_view``), M, batched PnP
+(``solvers.solve_pnp_batched``), H, ICP (``residuals.icp.icp_iterate``),
+Y, the generic Newton undistortion (``residuals.undistort_points_gn``),
+and RS, RANSAC and robust epipolar estimation (``initialization``).
 
 - ``manifolds``  SO(2), SE(2), SO(3), SE(3) and Sim(3), batched over
                  leading dimensions, and the manifold combinators
-- ``sim``        the st20 cube-room, trajectory and loop-closure scenes
-                 and the spiral pose graph (numpy core, torch tensors out,
-                 on the card unless ``device="cpu"``)
+- ``sim``        the st20 cube-room, trajectory and loop-closure scenes,
+                 the spiral pose graph, the calibration board and the
+                 two-view scene (numpy core, torch tensors out, on the
+                 card unless ``device="cpu"``)
 - ``estimation`` IMU preintegration, the chain and dense VI smoothers,
                  VI bundle adjustment, the VI initializer, the ESKF and
                  the INS (st4, st14, st23)
@@ -43,13 +49,20 @@ initializer, the SE(3) ESKF and the strapdown INS (``vi_initialize``,
                  ``schur.solve_ba`` with ``pcg``, ``schur_flat.solve_ba_flat``
                  with ``pcg_flat``, ``covariance.ba_covariances``,
                  ``sliding_window.run_sliding_window``, the pose-graph
-                 LM solvers of ``posegraph`` and ``posegraph_sim3``, and
-                 ``lm.levenberg_marquardt`` over any manifold
+                 LM solvers of ``posegraph`` and ``posegraph_sim3``,
+                 ``lm.levenberg_marquardt`` over any manifold,
+                 ``gn.gauss_newton`` (one problem or a batch) and the
+                 batched analytic-Jacobian ``pnp``
+- ``initialization`` the 8-point F / E and pose recovery, the DLT
+                 homography, N-view triangulation, batched RANSAC,
+                 robust epipolar estimation, Zhang's closed form
+- ``pipelines``  Zhang calibration and the two-view pipeline
 - ``residuals``  ``camera``: pinhole intrinsics, radial-tangential
                  distortion; ``robust``: the robust losses of ``loss=``;
                  ``posegraph``: the relative SE(3) and Sim(3) factors;
                  ``reprojection``: residuals and analytic Jacobians;
-                 ``icp.umeyama``
+                 ``icp``: point residuals, nearest neighbours, alignment,
+                 the ICP loop; ``epipolar``, ``calib``, ``simple``
 - ``evaluation`` ``metrics``: ATE, trajectory alignment, reprojection RMS
 - ``ops``        ``smallchol`` (unrolled 3x3 / 6x6 Cholesky, plain torch) and
                  the hand-written CUDA kernels and their plain torch versions:
@@ -59,7 +72,7 @@ initializer, the SE(3) ESKF and the strapdown INS (``vi_initialize``,
                  (Newton undistortion)
 - ``interop``    numpy / JAX-package state -> the port's tensors (also the
                  preintegrated segments, the VI simulation, the ESKF and
-                 INS states)
+                 INS states, the calibration and two-view scenes)
 
 Importing the package needs neither CUDA nor ``nvcc``: the kernels are built
 with ``nvcc`` at their first launch on a CUDA tensor (``ops/_build.py``).

@@ -5,7 +5,8 @@ Each function takes the JAX package's objects (``se3.SE3``, ``sim3.Sim3``,
 ``PoseGraphProblem``, ``posegraph.ChainGraphWork``, ``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
 ``loop_flat.LoopWork``, ``schur_flat.FlatWork``, ``pcg_flat.PCGWork``,
 ``schur.TrackPairs``, ``pcg.BandPairs``, ``sliding_window.WindowPrior``,
-``camera.Intrinsics``, ``camera.DistCoeffs``) or anything else whose
+``camera.Intrinsics``, ``camera.DistCoeffs``, ``CalibScene``,
+``TwoViewScene``) or anything else whose
 fields numpy can read, copies every array through numpy and returns the
 port's counterpart on `device`, the card unless the caller names another
 (``device="cpu"``). Nothing here imports jax: a JAX array is
@@ -25,6 +26,8 @@ from slam_tricks_tpu_torch.manifolds.sim3 import Sim3
 from slam_tricks_tpu_torch.ops.ba_assemble import layout_index
 from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
+from slam_tricks_tpu_torch.sim.calib_scene import CalibScene
+from slam_tricks_tpu_torch.sim.two_view import TwoViewScene
 from slam_tricks_tpu_torch.sim.trajectory import PoseGraphProblem
 from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork, chunk_table
 from slam_tricks_tpu_torch.solvers.loop_flat import LoopWork
@@ -140,6 +143,27 @@ def intrinsics_from_jax(intr, device=None):
 def dist_from_jax(dist, device=None):
     """DistCoeffs of 0-d tensors."""
     return DistCoeffs(*(tensor(v, device) for v in dist))
+
+
+def calib_scene_from_jax(scene, device=None):
+    """``sim.calib_scene.CalibScene``: the arrays and poses as tensors, the
+    true distortion as 0-d tensors, the intrinsics as floats."""
+    return CalibScene(board_pts=tensor(scene.board_pts, device),
+                      image_pts=tensor(scene.image_pts, device),
+                      poses_true=poses_from_jax(scene.poses_true, device),
+                      fx=float(scene.fx), fy=float(scene.fy),
+                      cx=float(scene.cx), cy=float(scene.cy),
+                      dist_true=dist_from_jax(scene.dist_true, device))
+
+
+def two_view_from_jax(scene, device=None):
+    """``sim.two_view.TwoViewScene``."""
+    return TwoViewScene(T1=poses_from_jax(scene.T1, device),
+                        T2=poses_from_jax(scene.T2, device),
+                        points=tensor(scene.points, device),
+                        uv1=tensor(scene.uv1, device),
+                        uv2=tensor(scene.uv2, device),
+                        T_12=poses_from_jax(scene.T_12, device))
 
 
 def _flat_table(work):

@@ -1,4 +1,5 @@
-"""Deterministic simulators."""
+"""Deterministic simulators: the BA scenes, the pose graphs, the
+calibration board and the two-view scene."""
 
 from slam_tricks_tpu_torch.sim.ba_scene import (  # noqa: F401
     BAObservations,
@@ -8,8 +9,16 @@ from slam_tricks_tpu_torch.sim.ba_scene import (  # noqa: F401
     make_trajectory_scene,
     perturb_scene,
 )
+from slam_tricks_tpu_torch.sim.calib_scene import (  # noqa: F401
+    CalibScene,
+    make_calib_scene,
+)
 from slam_tricks_tpu_torch.sim.trajectory import (  # noqa: F401
     PoseGraphProblem,
     make_pose_graph,
     spiral_poses,
+)
+from slam_tricks_tpu_torch.sim.two_view import (  # noqa: F401
+    TwoViewScene,
+    make_two_view,
 )

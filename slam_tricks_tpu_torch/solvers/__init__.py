@@ -5,8 +5,10 @@ observation-list reference solver and its PCG (paths O and D), the flat
 layout and its PCG (paths F and P), the sliding-window smoother (path W),
 the posterior covariances (path V), the pose graphs: dense SE(3)
 (path Q), chain (path T), relative-state (path R) and Sim(3) (path S),
-and the generic Levenberg-Marquardt solver over a manifold (``lm``, which
-the dense VI smoother and VI bundle adjustment run)."""
+the generic Levenberg-Marquardt solver over a manifold (``lm``, which
+the dense VI smoother, VI bundle adjustment and Zhang calibration run),
+the generic Gauss-Newton solver, one problem or a batch (``gn``), and the
+batched analytic-Jacobian PnP (``pnp``)."""
 
 from slam_tricks_tpu_torch.solvers.banded_flat import (  # noqa: F401
     BandedWork,
@@ -22,6 +24,10 @@ from slam_tricks_tpu_torch.solvers.banded_flat import (  # noqa: F401
     tridiag_forward,
 )
 from slam_tricks_tpu_torch.solvers.common import SolveResult  # noqa: F401
+from slam_tricks_tpu_torch.solvers.gn import (  # noqa: F401
+    gauss_newton,
+    gauss_newton_batched,
+)
 from slam_tricks_tpu_torch.solvers.covariance import (  # noqa: F401
     ba_covariances,
 )
@@ -39,6 +45,11 @@ from slam_tricks_tpu_torch.solvers.loop_flat import (  # noqa: F401
     build_loop_work,
     loop_pose_covariances,
     solve_ba_loop,
+)
+from slam_tricks_tpu_torch.solvers.pnp import (  # noqa: F401
+    PnPResult,
+    solve_pnp,
+    solve_pnp_batched,
 )
 from slam_tricks_tpu_torch.solvers.pcg import (  # noqa: F401
     BandPairs,

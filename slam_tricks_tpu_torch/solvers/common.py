@@ -133,17 +133,27 @@ def linearize(residual_fn, manifold, x, args=()):
 
 def solve_damped_normal(H, g, lam, use_marquardt_scaling=True):
     """Solve (H + lam D) delta = -g, D = diag(max(diag H, 1e-12))
-    (Marquardt scaling) or I, by Cholesky: for n <= 16 the unrolled
-    ``ops.smallchol``, above through ``ops.spd_solve`` (the CUDA kernel on
-    the card). Returns (delta, bad): a non-finite delta (a factor that is
-    not positive definite gives NaN) becomes a zero step with bad True,
-    the JAX package's semantics."""
-    n = H.shape[0]
+    (Marquardt scaling) or I, by Cholesky, for H (..., n, n) and g (..., n)
+    with any leading batch dimensions: for n <= 16 the unrolled
+    ``ops.smallchol`` over the whole batch, above through ``ops.spd_solve``
+    (the CUDA kernel on the card), one call a problem. Returns (delta,
+    bad (...)): a non-finite delta (a factor that is not positive definite
+    gives NaN) becomes a zero step with bad True, the JAX package's
+    semantics."""
+    n = H.shape[-1]
     if use_marquardt_scaling:
-        D = torch.diag(torch.clamp_min(torch.diagonal(H), 1e-12))
+        D = torch.diag_embed(torch.clamp_min(
+            torch.diagonal(H, dim1=-2, dim2=-1), 1e-12))
     else:
         D = torch.eye(n, dtype=H.dtype, device=H.device)
     A = H + lam * D
-    delta = cho_solve_small(A, -g) if n <= 16 else spd_solve(A, -g)
-    bad = ~torch.isfinite(delta).all()
-    return torch.where(bad, torch.zeros_like(delta), delta), bad
+    if n <= 16:
+        delta = cho_solve_small(A, -g)
+    elif A.dim() == 2:
+        delta = spd_solve(A, -g)
+    else:
+        delta = torch.stack([spd_solve(a, -b) for a, b in
+                             zip(A.reshape(-1, n, n), g.reshape(-1, n))]
+                            ).reshape(g.shape)
+    bad = ~torch.isfinite(delta).all(dim=-1)
+    return torch.where(bad[..., None], torch.zeros_like(delta), delta), bad

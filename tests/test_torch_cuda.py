@@ -22,9 +22,11 @@ fused multiply-adds with an approximate reciprocal of the determinant) and
 incremental stream, schur.solve_ba dense and paired, schur_flat dense and
 PCG, a sliding-window shift, the pose graphs' dense, chain,
 relative-state and Sim(3) solves, and the VI smoothers, chain with its
-covariances and dense) to 1e-8 in the poses, as against JAX; two
-f32 solves of paths A and B give the same bits; ba_assemble at the large-C
-grid (1024 cameras, K = 464) as above, and spd_solve at n = 6144."""
+covariances and dense, the two-view refinement and Zhang calibration) to
+1e-8 in the poses, as against JAX; two f32 solves of paths A and B give
+the same bits; ba_assemble at the large-C grid (1024 cameras, K = 464)
+and at the two-view grid (K = 2, L = 2000) as above, and spd_solve at
+n = 6144 and at the geometric slice's n = 12 and 63."""
 
 import numpy as np
 import pytest
@@ -796,3 +798,80 @@ def test_vi_smoother_on_cuda_matches_cpu(solver):
     for a, b in ((card.poses.t, cpu.poses.t), (card.poses.R, cpu.poses.R),
                  (card.bias, cpu.bias), *zip(cov_g, cov_c)):
         assert rel_err(a, b) < 1e-8
+
+
+# ---- the geometric-vision slice: the kernels at its shapes ----
+
+@pytest.mark.parametrize("n", [12, 63])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 5e-6),
+                                        (torch.float64, 1e-9)])
+def test_spd_solve_kernel_at_geometry_sizes(n, dtype, tol):
+    """n = 12: the two-view refinement's reduced camera system (2 cameras);
+    n = 63 = 9 + 6 x 9: Zhang calibration's normal system at 9 views, a
+    ragged second 32-tile."""
+    dev = require_cuda()
+    S, b = _spd_system(n, dtype, dev)
+    before = spd_solve.LAUNCHES
+    x = spd_solve.spd_solve(S, b)
+    torch.cuda.synchronize()
+    assert spd_solve.LAUNCHES == before + 1
+    assert rel_err(x, spd_solve.spd_solve_plain(S, b)) < tol
+
+
+def test_ba_assemble_kernel_at_the_two_view_grid():
+    """The two-view refinement's (K = 2, L = 2000) grid of 2 cameras (the
+    bench's make_two_view(2000, noise=1e-3, seed=8)), f32, one landmark
+    with no live slot: against plain to 1e-4, two launches bitwise
+    equal."""
+    from slam_tricks_tpu_torch.manifolds import se3
+    from slam_tricks_tpu_torch.pipelines.two_view import two_view_work
+    from slam_tricks_tpu_torch.sim import make_two_view
+
+    dev = require_cuda()
+    sc = make_two_view(n_points=2000, noise=1e-3, seed=8,
+                       dtype=torch.float32, device=dev)
+    w = torch.ones(2000, dtype=torch.float32, device=dev)
+    w[11] = 0.0
+    work = two_view_work(sc.uv1, sc.uv2, w)
+    assert work.w.shape == (2, 2000)
+    poses = se3.SE3(torch.stack([torch.eye(3, device=dev), sc.T_12.R]),
+                    torch.stack([torch.zeros(3, device=dev), sc.T_12.t]))
+    points = se3.act(sc.T1, sc.points) * 1.01
+    args = (poses.R.reshape(2, 9), poses.t, points, work.uv0, work.uv1,
+            work.w, work.cam_of_slot)
+    ref = ba_assemble.linearize_assemble_plain(*args)
+    one = ba_assemble.linearize_assemble(*args, work.cam_index)
+    two = ba_assemble.linearize_assemble(*args, work.cam_index)
+    for name, a, b, c in zip(_ASSEMBLE_OUT, one, ref, two):
+        assert rel_err(a, b) < 1e-4, (name, rel_err(a, b))
+        assert torch.equal(a, c), name
+
+
+def test_geometry_pipelines_on_cuda_match_cpu():
+    """solve_two_view (ba_assemble, spd_solve at n = 12) and calibrate
+    (spd_solve at n = 45) in f64 on the card against the CPU path: 1e-8."""
+    from slam_tricks_tpu_torch.pipelines import calibration, two_view
+    from slam_tricks_tpu_torch.sim import make_calib_scene, make_two_view
+
+    dev = require_cuda()
+    outs = []
+    for device in ("cpu", dev):
+        tv = make_two_view(n_points=60, noise=1e-4, seed=4, device=device)
+        cs = make_calib_scene(n_views=6, noise=0.1, seed=9, device=device)
+        before = (ba_assemble.LAUNCHES, spd_solve.LAUNCHES)
+        res = two_view.solve_two_view(tv.uv1, tv.uv2, refine_iters=6)
+        torch.cuda.synchronize()
+        mid = (ba_assemble.LAUNCHES, spd_solve.LAUNCHES)
+        cal = calibration.calibrate(cs.board_pts, cs.image_pts, max_iters=5)
+        torch.cuda.synchronize()
+        outs.append((res, cal, mid[0] - before[0], mid[1] - before[1],
+                     spd_solve.LAUNCHES - mid[1]))
+    (r_c, c_c, *_), (r_g, c_g, n_ba, n_spd_tv, n_spd_cal) = outs
+    # one assemble at the start and one a step; one solve a step
+    assert 1 <= n_spd_tv <= 6 and n_ba == n_spd_tv + 1
+    assert n_spd_cal == c_g.iterations == c_c.iterations
+    for a, b in ((r_g.T_12.R, r_c.T_12.R), (r_g.T_12.t, r_c.T_12.t),
+                 (r_g.points, r_c.points), (c_g.poses.t, c_c.poses.t),
+                 (c_g.final_cost, c_c.final_cost)):
+        assert rel_err(a, b) < 1e-8
+    assert abs(float(c_g.intrinsics.fx) - float(c_c.intrinsics.fx)) < 1e-6
