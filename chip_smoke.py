@@ -84,6 +84,17 @@ through the kernels, each with every launch count set to 0 just before it:
   50%-outlier parabola and robust_fundamental on 80 matches with 20
   corrupted (float64, generators on the card); spd_solve against plain at
   n = 63 and 12 in float32 and float64, ba_assemble at X's grid;
+- the image front end on 640 x 480 float32 frames made from a seed with
+  numpy and scipy, each held to the same port function on the CPU in
+  float64 and to the JAX tests' gates: FO, gaussian_blur (sigma 1.5),
+  sobel, top_k_peaks (k 1000, r 4) and undistort_image (path E's
+  coefficients); SD, rolling_shutter_points (4096 points) and lidar_sweep
+  (1440 beams) in box_segments; LK, lk_track (3 levels, win 7, 15
+  iterations, 1024 seeds) on a (3.4, -2.2) px shift; DA,
+  direct_pose_estimate (k 2048, 40 LM iterations); ORB, orb_detect (n
+  1000) on two frames 30 degrees apart and orb_match; CB,
+  detect_chessboard on a rendered board of 7 x 9 interior corners; PAN,
+  stitch of three overlapping crops with Harris and with ORB features;
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -97,7 +108,7 @@ start of matrix products) and bound, each phase's ms per LM iteration,
 iterations, final cost and launches, the card's name and power limit from
 nvidia-smi, and last the JSON status line. With --profile DIR it also writes
 torch.profiler tables of paths A, B, L, D, G, R and K to DIR. Paths M, H,
-Y and RS run no kernel.
+Y, RS and the front end's run no kernel.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -1463,6 +1474,419 @@ def geometry_paths(dev, run_phase, check_spd, check_assemble, phases):
     return {"spd": spd, "assemble": asm, "launches": launches_of}
 
 
+FE_SHAPE = (480, 640)       # VGA frames, float32: a VO or calibration front
+FE_SEED = 21                # end's input (st5, st10, st11, st13 run on such)
+FO_SIGMA, FO_K, FO_R = 1.5, 1000, 4
+FO_REL_TOL = 1e-5           # FO: card f32 against CPU f64, max |d| / max |ref|
+FO_UNDIST_TOL = 1e-3        # FO: undistort_image, |d| in intensity (0..1)
+SD_POINTS, SD_BEAMS = 4096, 1440
+SD_ROW_TIME = 1.0 / (30 * 480)   # 480 rows read out over a 30 Hz frame
+SD_REL_TOL = 1e-5           # SD: card f32 against CPU f64, relative
+LK_ARGS = dict(levels=3, win=7, iters=15)
+LK_SEEDS = dict(grid=16, pts_per_cell=4, margin=20, seed=2)   # 1024 points
+LK_SHIFT = (3.4, -2.2)      # tests/test_optical_flow_panorama.py:42-53
+LK_MEDIAN_ERR = 0.25        # px, each axis (the JAX test's gate)
+LK_CPU_TOL = 1e-2           # px, card f32 against CPU f64 where both valid
+LK_VALID_AGREE = 0.99       # and the share of points valid on both or neither
+DA_TWIST = [0.05, -0.03, 0.02, 0.004, -0.006, 0.003]   # tests/test_distortion
+DA_DEPTH = 5.0              # _direct.py:76-114: the motion and the depth;
+DA_F = 600.0                # its f = 150 and texture sigma 3 at 160 x 120,
+DA_SIGMA = 12.0             # scaled with the frame to 640 x 480
+DA_ARGS = dict(k=2048, max_iters=40)
+DA_LOG_ERR = 1e-2           # max |log(T_est^-1 T_true)| (the JAX test's)
+DA_CPU_TOL = 2e-3           # and card f32 against CPU f64, the same measure
+ORB_SHAPES = 200            # polygons (tests/test_orb.py's 50 at 320 x 240)
+ORB_N, ORB_DEG = 1000, 30.0
+ORB_MATCH = dict(ratio=0.8, max_hamming=48)
+ORB_MIN_MATCHES, ORB_MIN_FRAC = 30, 0.7   # tests/test_orb.py:50-66
+ORB_KEEP = 0.95             # card f32 against CPU f64: keypoints in common
+ORB_BITS = 0.01             # and descriptor bits that differ among them
+CB_BOARD = dict(rows=7, cols=9, square_px=40, angle=0.15, noise=0.01,
+                seed=11)    # 7 x 9 interior corners, 8 x 10 squares of 40 px
+CB_PX = 1.0                 # every true corner detected within 1 px
+CB_CPU_TOL = 1e-2           # px, card f32 against CPU f64 corners
+PAN_CROPS = ((0, 0), (64, 6), (128, 12))   # (x, y) of three 640 x 480 crops
+PAN_PX = 0.5                # each pairwise H's shift (the JAX test's gates,
+PAN_MIN_INLIERS = 15        # tests/test_optical_flow_panorama.py:68-80)
+PAN_CPU_PX = 1e-6           # card f64 against CPU f64 on the same 256
+                            # subsets: the good fits (> 15 inliers) at the
+                            # frame corners (the counts equal). RANSAC's
+                            # refit takes near-inliers, so H itself moves
+                            # ~0.1 px with the draws: f32 is held to the gate
+PAN_CANVAS_TOL = 1e-2       # mean |canvas - base image| where covered (a
+                            # stitch a pixel off leaves ~0.1)
+
+
+def _canvas_err(canvas, covered, base):
+    """mean |canvas - base| over the covered pixels, the canvas laid on the
+    base image at the best of the offsets -1, 0 and 1 in each axis: a
+    canvas's origin is the floor of its corners, which an estimated
+    homography may put one pixel off the exact shift's."""
+    import numpy as np
+
+    ii, jj = np.nonzero(covered)
+    best = float("inf")
+    for oy in (-1, 0, 1):
+        for ox in (-1, 0, 1):
+            bi, bj = ii + oy, jj + ox
+            if (bi.min() < 0 or bj.min() < 0 or bi.max() >= base.shape[0]
+                    or bj.max() >= base.shape[1]):
+                continue
+            best = min(best, float(np.abs(canvas[ii, jj] - base[bi, bj])
+                                   .mean()))
+    return best
+
+
+def frontend_paths(dev, run_phase, phases):
+    """Paths FO (image ops), SD (distortion simulators), LK (optical flow),
+    DA (direct alignment), ORB, CB (chessboard detection) and PAN (panorama
+    stitching, Harris and ORB features) at VGA, float32 on the card, each
+    run with every launch count set to 0 just before it (run_phase), timed
+    by CUDA events, held to the same port function on the CPU in float64
+    and gated as the JAX tests gate them. No path reaches a kernel: each
+    must record 0 launches. Returns {"launches": {path: counts}}."""
+    import numpy as np
+    import torch
+
+    from slam_tricks_tpu_torch.frontend import (chessboard, direct,
+                                                optical_flow, orb)
+    from slam_tricks_tpu_torch.initialization.ransac import (
+        draw_subsets, hypothesis_scores)
+    from slam_tricks_tpu_torch.manifolds import se2, se3
+    from slam_tricks_tpu_torch.ops import image, nms
+    from slam_tricks_tpu_torch.pipelines import panorama
+    from slam_tricks_tpu_torch.residuals import camera
+    from slam_tricks_tpu_torch.sim import distortion, images
+
+    f32, f64 = torch.float32, torch.float64
+    cpu = torch.device("cpu")
+    H, W = FE_SHAPE
+    t_start = time.perf_counter()
+    launches_of = {}
+
+    def on(a, device=dev, dtype=f32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def phase(label, fn, n_items, unit):
+        """run_phase on fn (every count 0 before it, which must stay 0),
+        then the steady time a call: (out, ms, items/s)."""
+        out, _, launches, ms_first = run_phase(label, lambda costs: fn(),
+                                               iters_of=lambda o: 1)
+        if any(launches.values()):
+            raise AssertionError(f"{label} launched a kernel: {launches}")
+        launches_of[label.split()[1]] = launches
+        ms = _time_ms(fn, rounds=3, reps=3)
+        rate = n_items / ms * 1e3
+        _log(label, f"{ms:.3f} ms a call (CUDA events; first call "
+                    f"{ms_first:.3f} ms), {rate:.4e} {unit}/s; launches "
+                    f"{launches}")
+        return out, ms, rate
+
+    def rel(a, b):              # the card's a against the CPU's b
+        return _rel(a.to(cpu, f64), b)
+
+    # ---- FO: blur, Sobel, top-k peaks, undistort_image ----
+    img_np = images.textured_image(H, W, seed=FE_SEED)
+    img = on(img_np)
+    intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)   # path E's
+    dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
+                             1.76187114e-05)
+
+    def run_fo(x=img):
+        blur = image.gaussian_blur(x, FO_SIGMA)
+        gx, gy = image.sobel(blur)
+        mag = gx * gx + gy * gy
+        return (blur, gx, gy, mag, nms.top_k_peaks(mag, FO_K, FO_R),
+                image.undistort_image(x, intr, dist))
+
+    (blur, gx, gy, mag, peaks, und), ms, fps = phase("path FO", run_fo, 1,
+                                                     "frames")
+    ref = run_fo(on(img_np, cpu, f64))
+    errs = [rel(a, b) for a, b in zip((blur, gx, gy, mag), ref[:4])]
+    und_err = float((und.to(cpu, f64) - ref[5]).abs().max())
+    # top-k on the card's own scores, promoted: the same comparisons, the
+    # same set and order
+    want = nms.top_k_peaks(mag.to(cpu, f64), FO_K, FO_R)
+    same_peaks = all(torch.equal(a.cpu(), b) for a, b in
+                     zip(peaks[1:], want[1:])) and torch.equal(
+        peaks[0].to(cpu, f64), want[0])
+    n_peaks = int(torch.isfinite(peaks[0]).sum())
+    _log("path FO", f"{H}x{W} f32: blur (sigma {FO_SIGMA}), Sobel, top-"
+                    f"{FO_K} peaks (r {FO_R}, {n_peaks} valid), "
+                    f"undistort_image; vs CPU f64: blur/gx/gy/|g|^2 "
+                    f"{max(errs):.3e} (tol {FO_REL_TOL}), undistort "
+                    f"{und_err:.3e} (tol {FO_UNDIST_TOL}); peaks equal to "
+                    f"the CPU's on the same scores: {same_peaks}")
+    if not (max(errs) < FO_REL_TOL and und_err < FO_UNDIST_TOL and same_peaks
+            and n_peaks == FO_K and und.shape == img.shape):
+        raise AssertionError("path FO: card and CPU differ")
+    phases["FO"] = {"ms": ms, "frames_per_s": fps, "rel_err": max(errs),
+                    "undistort_err": und_err, "peaks": n_peaks}
+
+    # ---- SD: rolling shutter and LiDAR sweep ----
+    rng = np.random.default_rng(FE_SEED)
+    pts0_np = rng.uniform([0, 0], [W, H], (SD_POINTS, 2))
+    vel_np = rng.normal(size=(SD_POINTS, 2)) * 300.0
+    base_np = (0.3, (0.5, -0.2), (2.0, -1.0, 3.0))
+
+    def run_sd(device=dev, dtype=f32):
+        base = se2.SE2(torch.tensor(base_np[0], dtype=dtype, device=device),
+                       torch.tensor(base_np[1], dtype=dtype, device=device))
+        return (distortion.rolling_shutter_points(
+                    on(pts0_np, device, dtype), on(vel_np, device, dtype),
+                    SD_ROW_TIME),
+                distortion.lidar_sweep(
+                    distortion.box_segments(4.0, dtype, device), base,
+                    torch.tensor(base_np[2], dtype=dtype, device=device),
+                    n_beams=SD_BEAMS))
+
+    (rs, sweep), ms, _ = phase("path SD", run_sd, SD_POINTS + SD_BEAMS,
+                               "points and beams")
+    rs_ref, sweep_ref = run_sd(cpu, f64)
+    sd_err = max(rel(rs, rs_ref), *(rel(a, b) for a, b in
+                                    zip(sweep, sweep_ref)))
+    still = distortion.lidar_sweep(
+        distortion.box_segments(4.0, f64, dev),
+        se2.SE2(torch.tensor(0.0, dtype=f64, device=dev),
+                torch.zeros(2, dtype=f64, device=dev)),
+        torch.zeros(3, dtype=f64, device=dev), n_beams=SD_BEAMS)
+    r = still.ranges.cpu().numpy()
+    wall = np.max(np.abs(still.points_world.cpu().numpy()), axis=1)
+    profile = (np.isfinite(r).all() and abs(r[0] - 4.0) < 1e-6
+               and abs(r[SD_BEAMS // 8] - 4.0 * np.sqrt(2)) < 2e-1
+               and np.all(np.abs(wall - 4.0) < 1e-6))
+    _log("path SD", f"{SD_POINTS} rolling-shutter points ({H} rows), "
+                    f"{SD_BEAMS}-beam sweep of a moving, turning base in "
+                    f"box_segments: vs CPU f64 {sd_err:.3e} (tol "
+                    f"{SD_REL_TOL}); static sweep profile (f64 on the card,"
+                    f" the JAX test's gates): {profile}")
+    if not (sd_err < SD_REL_TOL and profile):
+        raise AssertionError(f"path SD: {sd_err}, profile {profile}")
+    phases["SD"] = {"ms": ms, "items_per_s": (SD_POINTS + SD_BEAMS) / ms
+                    * 1e3, "rel_err": sd_err}
+
+    # ---- LK: pyramidal LK, 1024 seeds, a (3.4, -2.2) px shift ----
+    lk2_np = images.shift_image(img_np, *LK_SHIFT)
+    seeds_np = optical_flow.grid_seed_points(H, W, **LK_SEEDS)
+    lk1, lk2, seeds = on(img_np), on(lk2_np), on(seeds_np)
+    (pts2, valid), ms, pps = phase(
+        "path LK", lambda: optical_flow.lk_track(lk1, lk2, seeds, **LK_ARGS),
+        len(seeds_np), "points")
+    pts2_ref, valid_ref = optical_flow.lk_track(
+        on(img_np, cpu, f64), on(lk2_np, cpu, f64), on(seeds_np, cpu, f64),
+        **LK_ARGS)
+    v, vr = valid.cpu(), valid_ref
+    both = v & vr
+    agree = float((v == vr).double().mean())
+    lk_cpu = float((pts2.to(cpu, f64) - pts2_ref)[both].abs().max())
+    flow = (pts2 - seeds).cpu().numpy()[v.numpy()]
+    med = np.median(np.abs(flow - LK_SHIFT), axis=0)
+    _log("path LK", f"{len(seeds_np)} points, {LK_ARGS}: {int(v.sum())} "
+                    f"valid, median error {med[0]:.4f}, {med[1]:.4f} px "
+                    f"(gate {LK_MEDIAN_ERR}); vs CPU f64 {lk_cpu:.3e} px "
+                    f"(tol {LK_CPU_TOL}), valid agree {agree:.4f}")
+    if not (len(flow) > 10 and (med < LK_MEDIAN_ERR).all()
+            and lk_cpu < LK_CPU_TOL and agree >= LK_VALID_AGREE):
+        raise AssertionError(f"path LK: median {med}, vs CPU {lk_cpu}, "
+                             f"agree {agree}")
+    phases["LK"] = {"ms": ms, "points_per_s": pps, "median_err_px":
+                    med.tolist(), "vs_cpu_px": lk_cpu, "valid": int(v.sum())}
+
+    # ---- DA: direct alignment, k 2048, 40 LM iterations ----
+    from scipy.ndimage import gaussian_filter
+
+    tex = gaussian_filter(np.random.default_rng(3).normal(size=(H, W)),
+                          DA_SIGMA)
+    da1_np = (tex - tex.min()) / np.ptp(tex)
+    intr_da = camera.Intrinsics(DA_F, DA_F, W / 2, H / 2)
+    T_21 = se3.exp(torch.tensor(DA_TWIST, dtype=f64))
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float64),
+                         np.arange(W, dtype=np.float64), indexing="ij")
+    p2 = torch.as_tensor(np.stack([(xs - W / 2) / DA_F * DA_DEPTH,
+                                   (ys - H / 2) / DA_F * DA_DEPTH,
+                                   np.full_like(xs, DA_DEPTH)], -1)
+                         .reshape(-1, 3))
+    p1 = se3.act(se3.inv(T_21), p2)
+    xy1 = torch.stack([DA_F * p1[:, 0] / p1[:, 2] + W / 2,
+                       DA_F * p1[:, 1] / p1[:, 2] + H / 2], 1)
+    da2_np = image.sample_bilinear(torch.as_tensor(da1_np), xy1).reshape(
+        H, W).numpy()
+    da1, da2 = on(da1_np), on(da2_np)
+    depth = torch.full((DA_ARGS["k"],), DA_DEPTH, dtype=f32, device=dev)
+    (T_est, res), ms, fps = phase(
+        "path DA", lambda: direct.direct_pose_estimate(da1, da2, depth,
+                                                       intr_da, **DA_ARGS),
+        1, "frame pairs")
+    T_ref, _ = direct.direct_pose_estimate(
+        on(da1_np, cpu, f64), on(da2_np, cpu, f64),
+        torch.full((DA_ARGS["k"],), DA_DEPTH, dtype=f64), intr_da,
+        **DA_ARGS)
+    T_card = se3.SE3(T_est.R.to(cpu, f64), T_est.t.to(cpu, f64))
+    log_err = float(se3.local(T_card, T_21).abs().max())
+    da_cpu = float(se3.local(T_card, T_ref).abs().max())
+    _log("path DA", f"{H}x{W} f32, {DA_ARGS}: {res.iterations} LM "
+                    f"iterations, cost {float(res.cost):.4e}; max |log "
+                    f"error| {log_err:.3e} (gate {DA_LOG_ERR}); vs CPU f64 "
+                    f"{da_cpu:.3e} (tol {DA_CPU_TOL})")
+    if not (log_err < DA_LOG_ERR and da_cpu < DA_CPU_TOL):
+        raise AssertionError(f"path DA: log error {log_err}, vs CPU {da_cpu}")
+    phases["DA"] = {"ms": ms, "frame_pairs_per_s": fps, "iters":
+                    res.iterations, "log_err": log_err, "vs_cpu": da_cpu}
+
+    # ---- ORB: two frames 30 degrees apart, n 1000, matched ----
+    orb_np = images.polygon_image(seed=FE_SEED, H=H, W=W,
+                                  n_shapes=ORB_SHAPES)
+    rot_np, M = images.rotate_image(orb_np, ORB_DEG)
+    o1, o2 = on(orb_np), on(rot_np)
+
+    def run_orb(a=o1, b=o2):
+        fa, fb = orb.orb_detect(a, n=ORB_N), orb.orb_detect(b, n=ORB_N)
+        return fa, fb, orb.orb_match(fa, fb, **ORB_MATCH)
+
+    (fa, fb, (idx2, ok)), ms, fps = phase("path ORB", run_orb, 2, "frames")
+    ok = ok.cpu().numpy()
+    pred = fa.xy.cpu().numpy()[ok] @ M[:, :2].T + M[:, 2]
+    err = np.linalg.norm(pred - fb.xy.cpu().numpy()[idx2.cpu().numpy()[ok]],
+                         axis=1)
+    frac = float((err < 3.0).mean()) if len(err) else 0.0
+    ra, _, _ = run_orb(on(orb_np, cpu, f64), on(rot_np, cpu, f64))
+    key = {tuple(p): i for i, p in enumerate(ra.xy.long().tolist())}
+    va = fa.valid.cpu().numpy()
+    common = [(i, key[tuple(p)]) for i, p in enumerate(fa.xy.long().tolist())
+              if va[i] and tuple(p) in key and bool(ra.valid[key[tuple(p)]])]
+    keep = len(common) / max(int(va.sum()), 1)
+    ci, cj = (np.array(c) for c in zip(*common))
+    bits = float((fa.desc.cpu().numpy()[ci] != ra.desc.numpy()[cj]).mean())
+    _log("path ORB", f"two {H}x{W} frames {ORB_DEG} deg apart, n {ORB_N}: "
+                     f"{int(va.sum())}, {int(fb.valid.sum())} valid, "
+                     f"{int(ok.sum())} matches (gate >= {ORB_MIN_MATCHES}), "
+                     f"{frac:.4f} within 3 px (gate > {ORB_MIN_FRAC}); vs "
+                     f"CPU f64: keypoints in common {keep:.4f} (tol >= "
+                     f"{ORB_KEEP}), descriptor bits differing {bits:.4e} "
+                     f"(tol {ORB_BITS})")
+    if not (ok.sum() >= ORB_MIN_MATCHES and frac > ORB_MIN_FRAC
+            and keep >= ORB_KEEP and bits < ORB_BITS):
+        raise AssertionError(f"path ORB: {int(ok.sum())} matches, {frac}, "
+                             f"keep {keep}, bits {bits}")
+    phases["ORB"] = {"ms": ms, "frames_per_s": fps, "matches": int(ok.sum()),
+                     "frac_within_3px": frac, "vs_cpu_keep": keep,
+                     "vs_cpu_bits": bits}
+
+    # ---- CB: chessboard detection on a rendered, rotated board ----
+    cb_np, truth = images.render_chessboard(shape=FE_SHAPE, **CB_BOARD)
+    cb_img = on(cb_np)
+    (boards, cxy, csc, _), ms, fps = phase(
+        "path CB", lambda: chessboard.detect_chessboard(cb_img, device=dev),
+        1, "frames")
+    kept = np.isfinite(csc.cpu().numpy())
+    det = cxy.cpu().numpy()[kept]
+    best = np.linalg.norm(det[None] - truth[:, None], axis=2).min(axis=1)
+    grid = cxy.cpu().numpy()[boards[0]] if boards else np.zeros((0, 0, 2))
+    held = (np.linalg.norm(grid.reshape(-1, 1, 2) - truth[None], axis=2)
+            .min(axis=0) < CB_PX) if boards else np.zeros(len(truth), bool)
+    rboards, rxy, rsc, _ = chessboard.detect_chessboard(
+        cb_np.astype(np.float64), device=cpu)
+    rkept = np.isfinite(rsc.numpy())
+    pair = np.linalg.norm(det[:, None] - rxy.numpy()[rkept][None], axis=2)
+    cb_cpu = float(pair.min(axis=1).max()) if len(det) else np.inf
+    same_board = bool(boards and rboards
+                      and boards[0].shape == rboards[0].shape)
+    _log("path CB", f"{H}x{W} board of {len(truth)} interior corners: "
+                    f"{int(kept.sum())} kept, worst true corner "
+                    f"{best.max():.4f} px (gate {CB_PX}); board "
+                    f"{boards[0].shape if boards else None} holds "
+                    f"{int(held.sum())} of them; vs CPU f64 {int(rkept.sum())}"
+                    f" kept, corners within {cb_cpu:.3e} px (tol "
+                    f"{CB_CPU_TOL}), same board shape {same_board}")
+    if not ((best < CB_PX).all() and held.all()
+            and boards[0].size == len(truth) and kept.sum() == rkept.sum()
+            and cb_cpu < CB_CPU_TOL and same_board):
+        raise AssertionError("path CB: a gate failed")
+    phases["CB"] = {"ms": ms, "frames_per_s": fps, "kept": int(kept.sum()),
+                    "worst_px": float(best.max()), "vs_cpu_px": cb_cpu}
+
+    # ---- PAN: three overlapping VGA crops stitched, Harris and ORB ----
+    dx = max(x for x, _ in PAN_CROPS)
+    dy = max(y for _, y in PAN_CROPS)
+    base = 0.5 * (images.textured_image(H + dy, W + dx, seed=FE_SEED)
+                  + images.polygon_image(seed=FE_SEED, H=H + dy, W=W + dx,
+                                         n_shapes=ORB_SHAPES))
+    crops = [np.ascontiguousarray(base[y:y + H, x:x + W])
+             for x, y in PAN_CROPS]
+    corners = np.array([[0, 0], [W, 0], [0, H], [W, H]], np.float64)
+    pan_out = {}
+    for feat in ("harris", "orb"):
+        (canvas, cover), ms, fps = phase(
+            f"path PAN_{feat}", lambda: panorama.stitch(crops, seed=0,
+                                                        device=dev,
+                                                        features=feat),
+            len(crops), "frames")
+        canvas_err = _canvas_err(canvas.cpu().numpy(), cover.cpu().numpy(),
+                                 base)
+        worst, worst64, worst_cpu, n_min = 0.0, 0.0, 0.0, None
+        g = torch.Generator(device=dev).manual_seed(0)
+        g_cpu = torch.Generator().manual_seed(0)
+        at = on(corners, cpu, f64)
+        fns = dict(min_fit=panorama.homography_min_fit,
+                   residual_sq=panorama.homography_residual_sq,
+                   inlier_thresh_sq=4.0)
+        for (x0, y0), (x1, y1), a, b in zip(PAN_CROPS, PAN_CROPS[1:], crops,
+                                            crops[1:]):
+            Hc, n_in = panorama.pairwise_homography(g, on(a), on(b),
+                                                    features=feat)
+            Hr, _ = panorama.pairwise_homography(
+                g_cpu, on(a, cpu, f64), on(b, cpu, f64), features=feat)
+            shift = on(corners - [x1 - x0, y1 - y0], cpu, f64)
+            worst = max(worst, float((panorama.apply_h(Hc.to(cpu, f64), at)
+                                      - shift).abs().max()))
+            worst64 = max(worst64, float((panorama.apply_h(Hr, at) - shift)
+                                         .abs().max()))
+            n_min = int(n_in) if n_min is None else min(n_min, int(n_in))
+            # the same subsets through the card's and the CPU's f64 data
+            d_card = panorama.homography_matches(on(a, dev, f64),
+                                                 on(b, dev, f64),
+                                                 features=feat)
+            d_cpu = panorama.homography_matches(on(a, cpu, f64),
+                                                on(b, cpu, f64),
+                                                features=feat)
+            idx = draw_subsets(g_cpu, d_cpu["w"].shape[0], 256, 5,
+                               sample_weights=d_cpu["w"])
+            pc, sc = hypothesis_scores(d_card, idx.to(dev), **fns)
+            pr, sr = hypothesis_scores(d_cpu, idx, **fns)
+            good = sr > PAN_MIN_INLIERS
+            if not (torch.equal(d_card["w"].cpu(), d_cpu["w"])
+                    and torch.equal(sc.cpu(), sr) and bool(good.any())):
+                raise AssertionError(f"path PAN {feat}: the card's matches "
+                                     f"or inlier counts differ from the CPU's")
+            for hc, hr in zip(pc.cpu()[good], pr[good]):
+                worst_cpu = max(worst_cpu, float(
+                    (panorama.apply_h(hc.reshape(3, 3), at)
+                     - panorama.apply_h(hr.reshape(3, 3), at)).abs().max()))
+        _log(f"path PAN_{feat}", f"3 crops {H}x{W} at {PAN_CROPS}: canvas "
+                                 f"{tuple(canvas.shape)}, mean |canvas - base| "
+                                 f"{canvas_err:.3e} (tol {PAN_CANVAS_TOL});"
+                                 f" pairwise H f32 off the shift by "
+                                 f"{worst:.4f} px at the corners (gate "
+                                 f"{PAN_PX}; f64 {worst64:.3e}), fewest "
+                                 f"inliers {n_min} (gate > "
+                                 f"{PAN_MIN_INLIERS}); card f64 vs CPU f64 "
+                                 f"on the same subsets: matches and counts "
+                                 f"equal, good fits {worst_cpu:.3e} px (tol "
+                                 f"{PAN_CPU_PX})")
+        if not (canvas_err < PAN_CANVAS_TOL and worst < PAN_PX
+                and n_min > PAN_MIN_INLIERS and worst_cpu < PAN_CPU_PX):
+            raise AssertionError(f"path PAN {feat}: a gate failed")
+        pan_out[feat] = {"ms": ms, "frames_per_s": fps, "shift_err_px": worst,
+                         "shift_err_px_f64": worst64, "min_inliers": n_min,
+                         "vs_cpu_px": worst_cpu, "canvas_err": canvas_err}
+    phases["PAN"] = pan_out
+    wall = time.perf_counter() - t_start
+    _log("frontend", f"paths FO, SD, LK, DA, ORB, CB and PAN with their CPU "
+                     f"references: {wall:.1f} s of wall time")
+    phases["frontend"] = {"wall_s": wall}
+    return {"launches": launches_of}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -2487,6 +2911,10 @@ def main():
     # ---- 11m. paths Z, X, M, H, Y and RS: slice E, geometric vision ----
     geo = geometry_paths(dev, run_phase, check_spd, check_assemble, phases)
 
+    # ---- 11n. paths FO, SD, LK, DA, ORB, CB and PAN: the image front end
+    # (no kernel) ----
+    fe = frontend_paths(dev, run_phase, phases)
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -2557,7 +2985,7 @@ def main():
                    "I": launches_i, "E": launches_e,
                    **{k: v["launches"] for k, v in phases.items()
                       if "launches" in v}, **vi["launches"],
-                   **geo["launches"]}
+                   **geo["launches"], **fe["launches"]}
     by_path = {name: {path: n[name] for path, n in launches_of.items()
                       if n[name]}
                for name in ("ba_assemble", "spd_solve", "tridiag_solve")}

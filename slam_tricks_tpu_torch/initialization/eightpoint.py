@@ -39,13 +39,12 @@ def hartley_normalize(pts):
     centered = pts - mean[..., None, :]
     scale = (2.0 ** 0.5) / torch.clamp_min(
         torch.linalg.vector_norm(centered, dim=-1).mean(dim=-1), 1e-12)
-    T = torch.zeros(pts.shape[:-2] + (3, 3), dtype=pts.dtype,
-                    device=pts.device)
-    T[..., 0, 0] = scale
-    T[..., 1, 1] = scale
-    T[..., 2, 2] = 1.0
-    T[..., 0, 2] = -scale * mean[..., 0]
-    T[..., 1, 2] = -scale * mean[..., 1]
+    zero, one = torch.zeros_like(scale), torch.ones_like(scale)
+    # built out of place, so that it maps under torch.func.vmap (RANSAC's
+    # minimal fits)
+    T = torch.stack([torch.stack([scale, zero, -scale * mean[..., 0]], -1),
+                     torch.stack([zero, scale, -scale * mean[..., 1]], -1),
+                     torch.stack([zero, zero, one], -1)], -2)
     return centered * scale[..., None, None], T
 
 

@@ -18,25 +18,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from slam_tricks_tpu_torch.solvers.common import leaves, tree_map
+
 
 class RansacResult(NamedTuple):
     params: torch.Tensor           # the best model after the weighted refit
     inlier_mask: torch.Tensor      # (N,) bool
     n_inliers: torch.Tensor
     best_hypothesis: torch.Tensor  # the best minimal fit's params
-
-
-def _leaf(data):
-    return data if isinstance(data, torch.Tensor) else next(iter(
-        data.values())) if isinstance(data, dict) else data[0]
-
-
-def _take(data, idx):
-    if isinstance(data, torch.Tensor):
-        return data[idx]
-    if isinstance(data, dict):
-        return {k: v[idx] for k, v in data.items()}
-    return type(data)(v[idx] for v in data)
 
 
 def draw_subsets(generator, n, n_hyps, subset_size, sample_weights=None,
@@ -63,7 +52,8 @@ def hypothesis_scores(data, idx, *, min_fit: Callable, residual_sq: Callable,
     counts: (params (n_hyps, ...), scores (n_hyps,) int64, -1 where a
     fit is not finite). min_fit(subset) and residual_sq(params, data) are
     the per-subset functions of ``ransac``."""
-    params = torch.func.vmap(lambda i: min_fit(_take(data, i)))(idx)
+    params = torch.func.vmap(
+        lambda i: min_fit(tree_map(lambda v: v[i], data)))(idx)
     r2 = torch.func.vmap(lambda p: residual_sq(p, data))(params)
     finite = torch.isfinite(params.reshape(params.shape[0], -1)).all(dim=1)
     count = (r2 < inlier_thresh_sq).sum(dim=1)
@@ -75,14 +65,14 @@ def ransac(generator, data, *, min_fit: Callable, residual_sq: Callable,
            inlier_thresh_sq: float = 1e-2, sample_weights=None):
     """RANSAC over `n_hyps` hypotheses in one batch.
 
-    data: a tensor, a tuple or a dict of tensors with leading axis N (the
-    samples). min_fit(subset) -> params of a minimal subset;
-    residual_sq(params, data) -> (N,) squared residuals; refit(data,
-    weights (N,)) -> params, the weighted least-squares refit on the
-    inliers. sample_weights: optional (N,) sampling weights (zero excludes
-    a row from the subsets). generator: a ``torch.Generator`` in place of
-    the JAX key."""
-    x = _leaf(data)
+    data: a tensor, or a nest of tuples (NamedTuples included), lists and
+    dicts of tensors with leading axis N (the samples). min_fit(subset) ->
+    params of a minimal subset; residual_sq(params, data) -> (N,) squared
+    residuals; refit(data, weights (N,)) -> params, the weighted
+    least-squares refit on the inliers. sample_weights: optional (N,)
+    sampling weights (zero excludes a row from the subsets). generator: a
+    ``torch.Generator`` in place of the JAX key."""
+    x = leaves(data)[0]
     idx = draw_subsets(generator, x.shape[0], n_hyps, subset_size,
                        sample_weights, x.device)
     params_all, scores = hypothesis_scores(
@@ -107,7 +97,7 @@ def ransac_iterative_refit(generator, data, *, min_fit, residual_sq, refit,
                  refit=refit, subset_size=subset_size, n_hyps=n_hyps,
                  inlier_thresh_sq=inlier_thresh_sq)
     params, mask = res.params, res.inlier_mask
-    dtype = _leaf(data).dtype
+    dtype = leaves(data)[0].dtype
     for _ in range(n_refine):
         mask = residual_sq(params, data) < inlier_thresh_sq
         params = refit(data, mask.to(dtype))

@@ -6,7 +6,7 @@ Each function takes the JAX package's objects (``se3.SE3``, ``sim3.Sim3``,
 ``loop_flat.LoopWork``, ``schur_flat.FlatWork``, ``pcg_flat.PCGWork``,
 ``schur.TrackPairs``, ``pcg.BandPairs``, ``sliding_window.WindowPrior``,
 ``camera.Intrinsics``, ``camera.DistCoeffs``, ``CalibScene``,
-``TwoViewScene``) or anything else whose
+``TwoViewScene``, ``OrbFeatures``, ``LidarSweep``) or anything else whose
 fields numpy can read, copies every array through numpy and returns the
 port's counterpart on `device`, the card unless the caller names another
 (``device="cpu"``). Nothing here imports jax: a JAX array is
@@ -21,12 +21,14 @@ from slam_tricks_tpu_torch.estimation.eskf import ESKFState
 from slam_tricks_tpu_torch.estimation.ins import INSState
 from slam_tricks_tpu_torch.estimation.preintegration import PreintegratedImu
 from slam_tricks_tpu_torch.estimation.vi_smoother import ViSimData
+from slam_tricks_tpu_torch.frontend.orb import OrbFeatures
 from slam_tricks_tpu_torch.manifolds.se3 import SE3
 from slam_tricks_tpu_torch.manifolds.sim3 import Sim3
 from slam_tricks_tpu_torch.ops.ba_assemble import layout_index
 from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
 from slam_tricks_tpu_torch.sim.calib_scene import CalibScene
+from slam_tricks_tpu_torch.sim.distortion import LidarSweep
 from slam_tricks_tpu_torch.sim.two_view import TwoViewScene
 from slam_tricks_tpu_torch.sim.trajectory import PoseGraphProblem
 from slam_tricks_tpu_torch.solvers.banded_flat import BandedWork, chunk_table
@@ -164,6 +166,16 @@ def two_view_from_jax(scene, device=None):
                         uv1=tensor(scene.uv1, device),
                         uv2=tensor(scene.uv2, device),
                         T_12=poses_from_jax(scene.T_12, device))
+
+
+def orb_features_from_jax(f, device=None):
+    """``frontend.orb.OrbFeatures``."""
+    return OrbFeatures(*(tensor(v, device) for v in f))
+
+
+def lidar_sweep_from_jax(sweep, device=None):
+    """``sim.distortion.LidarSweep``."""
+    return LidarSweep(*(tensor(v, device) for v in sweep))
 
 
 def _flat_table(work):

@@ -1,2 +1,3 @@
 """Kernel layer: hand-written CUDA kernels (``csrc/``), each beside its plain
-torch version. Nothing here builds or loads a kernel at import."""
+torch version, and the plain-torch image ops of the front end (``image``,
+``nms``). Nothing here builds or loads a kernel at import."""

@@ -1,5 +1,6 @@
 """Deterministic simulators: the BA scenes, the pose graphs, the
-calibration board and the two-view scene."""
+calibration board, the two-view scene and the rolling-shutter and LiDAR
+distortion simulators."""
 
 from slam_tricks_tpu_torch.sim.ba_scene import (  # noqa: F401
     BAObservations,
@@ -12,6 +13,13 @@ from slam_tricks_tpu_torch.sim.ba_scene import (  # noqa: F401
 from slam_tricks_tpu_torch.sim.calib_scene import (  # noqa: F401
     CalibScene,
     make_calib_scene,
+)
+from slam_tricks_tpu_torch.sim.distortion import (  # noqa: F401
+    LidarSweep,
+    box_segments,
+    lidar_sweep,
+    ray_segment_intersection,
+    rolling_shutter_points,
 )
 from slam_tricks_tpu_torch.sim.trajectory import (  # noqa: F401
     PoseGraphProblem,

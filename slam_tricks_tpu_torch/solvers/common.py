@@ -110,10 +110,29 @@ def atb(J, r):
 
 
 def leaves(x):
-    """The tensors of a nest of tuples (NamedTuples included), in order."""
+    """The tensors of a nest of tuples, lists and dicts (NamedTuples
+    included), in order; any other leaf (a number, None) is skipped."""
     if isinstance(x, torch.Tensor):
         return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if not isinstance(x, (tuple, list)):
+        return []
     return [leaf for item in x for leaf in leaves(item)]
+
+
+def tree_map(f, x):
+    """f on every tensor of a nest of tuples, lists and dicts, rebuilt with
+    the same types (a NamedTuple by field); any other leaf (a number, None)
+    is kept as it is, as ``jax.tree_util.tree_map`` leaves a static one."""
+    if isinstance(x, torch.Tensor):
+        return f(x)
+    if isinstance(x, dict):
+        return type(x)((k, tree_map(f, v)) for k, v in x.items())
+    if not isinstance(x, (tuple, list)):
+        return x
+    items = [tree_map(f, item) for item in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
 
 
 def linearize(residual_fn, manifold, x, args=()):

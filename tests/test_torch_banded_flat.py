@@ -26,6 +26,7 @@ from slam_tricks_tpu.solvers import banded_flat as jbf
 from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.sim import make_scene, make_trajectory_scene
 from slam_tricks_tpu_torch.solvers import banded_flat
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 SCENES = {   # n_cams, n_points, track_len, seed
     "default": (32, 600, 6, 71),

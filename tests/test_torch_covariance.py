@@ -23,6 +23,7 @@ from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.sim import make_trajectory_scene, perturb_scene
 from slam_tricks_tpu_torch.solvers import banded_flat
 from slam_tricks_tpu_torch.solvers.covariance import ba_covariances
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 f64 = torch.float64
 

@@ -26,7 +26,9 @@ covariances and dense, the two-view refinement and Zhang calibration) to
 1e-8 in the poses, as against JAX; two f32 solves of paths A and B give
 the same bits; ba_assemble at the large-C grid (1024 cameras, K = 464)
 and at the two-view grid (K = 2, L = 2000) as above, and spd_solve at
-n = 6144 and at the geometric slice's n = 12 and 63."""
+n = 6144 and at the geometric slice's n = 12 and 63; the front end's
+paths (FO, SD, LK, DA, ORB, CB, PAN: no kernel) in f64 against the CPU at
+the CPU tests' sizes."""
 
 import numpy as np
 import pytest
@@ -875,3 +877,133 @@ def test_geometry_pipelines_on_cuda_match_cpu():
                  (c_g.final_cost, c_c.final_cost)):
         assert rel_err(a, b) < 1e-8
     assert abs(float(c_g.intrinsics.fx) - float(c_c.intrinsics.fx)) < 1e-6
+
+
+def _frontend_run(path, device):
+    """One front-end path at the CPU tests' sizes in float64 on `device`:
+    a tuple of tensors and numbers to hold card against CPU."""
+    from slam_tricks_tpu_torch.frontend import (chessboard, direct,
+                                                optical_flow, orb)
+    from slam_tricks_tpu_torch.manifolds import se2, se3
+    from slam_tricks_tpu_torch.ops import image, nms
+    from slam_tricks_tpu_torch.pipelines import panorama
+    from slam_tricks_tpu_torch.residuals import camera
+    from slam_tricks_tpu_torch.sim import distortion, images
+
+    f64 = torch.float64
+
+    def on(a):
+        return torch.as_tensor(np.asarray(a), dtype=f64, device=device)
+
+    if path == "FO":
+        img = on(images.textured_image(120, 160, seed=1))
+        blur = image.gaussian_blur(img, 1.5)
+        gx, gy = image.sobel(blur)
+        mag = gx * gx + gy * gy
+        intr = camera.Intrinsics(80.0, 80.0, 80.0, 60.0)
+        dist = camera.DistCoeffs(-0.2, 0.05, 0.01, 1e-3, -2e-3)
+        return (blur, gx, gy, mag, *nms.top_k_peaks(mag.cpu(), 200, 4),
+                image.undistort_image(img, intr, dist))
+    if path == "SD":
+        rng = np.random.default_rng(31)
+        rs = distortion.rolling_shutter_points(
+            on(rng.uniform(0, 400, (64, 2))), on(rng.normal(size=(64, 2))
+                                                 * 300), 1e-4)
+        sweep = distortion.lidar_sweep(
+            distortion.box_segments(4.0, f64, device),
+            se2.SE2(on(0.3), on([0.5, -0.2])), on([2.0, -1.0, 3.0]),
+            n_beams=361)
+        return (rs, *sweep)
+    if path == "LK":
+        img1 = images.textured_image(seed=1)
+        img2 = images.shift_image(img1, 3.4, -2.2)
+        pts = optical_flow.grid_seed_points(120, 160, grid=5, pts_per_cell=1,
+                                            margin=20, seed=2)
+        return optical_flow.lk_track(on(img1), on(img2), on(pts), levels=3,
+                                     win=7, iters=15)
+    if path == "DA":
+        from scipy.ndimage import gaussian_filter
+
+        tex = gaussian_filter(np.random.default_rng(3).normal(
+            size=(120, 160)), 3.0)
+        img1 = on((tex - tex.min()) / np.ptp(tex))
+        T_21 = se3.exp(on([0.05, -0.03, 0.02, 0.004, -0.006, 0.003]))
+        ys, xs = torch.meshgrid(torch.arange(120.0, dtype=f64, device=device),
+                                torch.arange(160.0, dtype=f64, device=device),
+                                indexing="ij")
+        p2 = torch.stack([(xs - 80) / 150 * 5, (ys - 60) / 150 * 5,
+                          torch.full_like(xs, 5.0)], -1).reshape(-1, 3)
+        p1 = se3.act(se3.inv(T_21), p2)
+        img2 = image.sample_bilinear(img1, torch.stack(
+            [150 * p1[:, 0] / p1[:, 2] + 80, 150 * p1[:, 1] / p1[:, 2] + 60],
+            1)).reshape(120, 160)
+        T_est, res = direct.direct_pose_estimate(
+            img1, img2, torch.full((256,), 5.0, dtype=f64, device=device),
+            camera.Intrinsics(150.0, 150.0, 80.0, 60.0), k=256, max_iters=40)
+        return T_est.R, T_est.t, res.cost
+    if path == "ORB":
+        img = images.polygon_image(seed=3)
+        rot, _ = images.rotate_image(img, 30.0)
+        f1 = orb.orb_detect(on(img), n=300)
+        f2 = orb.orb_detect(on(rot), n=300)
+        return f1, f2, orb.orb_match(f1, f2, ratio=0.8, max_hamming=48)
+    if path == "CB":
+        img, _ = images.render_chessboard(rows=5, cols=7, square_px=20,
+                                          margin=20, angle=0.15, noise=0.01)
+        return chessboard.detect_chessboard(img.astype(np.float64), k=96,
+                                            device=device)
+    if path == "PAN":
+        img1 = images.textured_image(h=140, w=180, seed=4)
+        img2 = images.shift_image(img1, -12.0, -5.0)
+        g = torch.Generator(device=device).manual_seed(0)
+        return panorama.pairwise_homography(g, on(img1), on(img2))
+    raise ValueError(path)
+
+
+@pytest.mark.parametrize("path", ["FO", "SD", "LK", "DA", "ORB", "CB", "PAN"])
+def test_frontend_path_on_cuda_matches_cpu(path):
+    """The front end's paths (no kernel) in f64 on the card against the
+    CPU at the CPU tests' sizes: arrays to 1e-9 relative (LK's points and
+    DA's pose 1e-8), top-k peaks, masks and boards equal; ORB's keypoints
+    as a set, descriptor bits at most 0.5% apart; PAN's H (different
+    random subsets, one consensus) to 1e-6. No kernel launches."""
+    dev = require_cuda()
+    counts = [m.LAUNCHES for m in (ba_assemble, spd_solve, tridiag_solve,
+                                   undistort)]
+    card = _frontend_run(path, dev)
+    torch.cuda.synchronize()
+    assert counts == [m.LAUNCHES for m in (ba_assemble, spd_solve,
+                                           tridiag_solve, undistort)]
+    cpu = _frontend_run(path, torch.device("cpu"))
+    if path == "ORB":
+        (g1, g2, (gi, gok)), (c1, c2, (ci, cok)) = card, cpu
+        for g, c in ((g1, c1), (g2, c2)):
+            key = {tuple(p): i for i, p in enumerate(c.xy.long().tolist())}
+            gv = g.valid.cpu()
+            assert int(gv.sum()) == int(c.valid.sum()) > 80
+            rows = [key[tuple(p)] for p, v in zip(g.xy.long().tolist(), gv)
+                    if v]
+            assert rel_err(g.angle.cpu()[gv], c.angle[rows]) < 1e-9
+            assert (g.desc.cpu()[gv] != c.desc[rows]).double().mean() < 5e-3
+        assert abs(int(gok.sum()) - int(cok.sum())) <= 2
+        return
+    if path == "CB":
+        (gb, gxy, gsc, _), (cb_, cxy, csc, _) = card, cpu
+        assert [b.shape for b in gb] == [b.shape for b in cb_] != []
+        assert torch.equal(torch.isfinite(gsc.cpu()), torch.isfinite(csc))
+        for b, c in zip(gb, cb_):
+            assert rel_err(gxy.cpu()[b], cxy[c]) < 1e-9
+        return
+    if path == "PAN":
+        (gH, gn), (cH, cn) = card, cpu
+        assert int(gn) == int(cn) > 15
+        assert float((gH.cpu() - cH).abs().max()) < 1e-6
+        return
+    for a, b in zip(card, cpu):
+        if a.dtype == torch.bool or not a.is_floating_point():
+            assert torch.equal(a.cpu(), b)
+        else:
+            a, fin = a.cpu(), torch.isfinite(b)
+            assert torch.equal(torch.isfinite(a), fin)
+            assert rel_err(a[fin], b[fin]) < (1e-8 if path in ("LK", "DA")
+                                              else 1e-9)

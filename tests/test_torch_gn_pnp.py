@@ -45,6 +45,7 @@ from slam_tricks_tpu_torch.solvers import common
 from slam_tricks_tpu_torch.solvers.gn import (gauss_newton,
                                               gauss_newton_batched)
 from slam_tricks_tpu_torch.solvers.pnp import solve_pnp, solve_pnp_batched
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 
 def T(a):
@@ -195,6 +196,27 @@ def test_gauss_newton_batched_large_n_through_spd_solve(monkeypatch):
                                euclidean(20), (T(A), T(b)), iters=6)
     assert calls and len(calls) == 3 * 6 and set(calls) == {(20, 20)}
     check_result(res, ref, float((res.x - T(ref.x)).abs().max()))
+
+
+def test_gauss_newton_passes_non_tensor_args_as_they_are():
+    """A Python number in args reaches the residual untouched, as the JAX
+    package's gauss_newton hands it over (it used to be batched as a tensor
+    and raise TypeError); in a batch it is shared by every problem. f64, x
+    to 1e-12."""
+    ref = jgn(lambda x, a: x - a, jnp.zeros(3), jeuclid(3), args=(1.5,))
+    res = gauss_newton(lambda x, a: x - a, torch.zeros(3, dtype=torch.float64),
+                       euclidean(3), args=(1.5,))
+    assert float((res.x - T(ref.x)).abs().max()) < 1e-12
+    assert int(res.iterations) == int(ref.iterations)
+    np.testing.assert_allclose(res.x.numpy(), [1.5, 1.5, 1.5], atol=1e-12)
+    shift = np.arange(4.0)[:, None] * np.ones((4, 3))
+    jref = jax.vmap(lambda s: jgn(lambda x, a, b: x - a * b, jnp.zeros(3),
+                                  jeuclid(3), args=(s, 2.0)).x)(
+        jnp.asarray(shift))
+    resb = gauss_newton_batched(lambda x, a, b: x - a * b,
+                                torch.zeros(4, 3, dtype=torch.float64),
+                                euclidean(3), (T(shift), 2.0))
+    assert float((resb.x - T(jref)).abs().max()) < 1e-12
 
 
 def make_pnp_specialized(seed, n=24, noise=1e-3):

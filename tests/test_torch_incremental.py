@@ -29,6 +29,7 @@ from slam_tricks_tpu.solvers import banded_flat as jbf
 from slam_tricks_tpu.solvers import incremental as jinc
 from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.solvers import banded_flat, incremental
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 SCHEDULE = [16, 20, 24, 28, 32]
 

@@ -32,6 +32,7 @@ eigenvalue's gap), 1e-9 for pose recovery and triangulated points.
 """
 
 import importlib
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -276,6 +277,58 @@ def test_ransac_hypotheses_match_jax_on_the_same_subsets():
     jscores = jnp.sum(jr2 < 0.01, axis=1)
     assert rel_err(params, jparams) < 1e-10
     assert np.array_equal(scores.numpy(), np.asarray(jscores))
+
+
+class LineData(NamedTuple):
+    x: object
+    y: object
+
+
+def test_ransac_takes_namedtuple_data():
+    """data as a two-field NamedTuple (the JAX ransac maps any pytree; the
+    port used to rebuild it from a generator and raise TypeError): a line
+    fit with 30% outliers, held to the JAX package's fits and inlier counts
+    on the same subsets (params to 1e-10, counts exact), then a whole
+    ransac whose consensus is unique: the JAX result to 1e-10."""
+    rng = np.random.default_rng(12)
+    xs = rng.uniform(-2, 2, 120)
+    ys = 0.7 * xs - 0.4 + np.where(rng.random(120) < 0.3,
+                                   rng.uniform(-5, 5, 120), 0.0)
+
+    def fit(x, y, w=None):
+        w = torch.ones_like(x) if w is None else w
+        A = torch.stack([x * w, w], dim=1)
+        return torch.linalg.lstsq(A, (y * w)[:, None]).solution[:, 0]
+
+    def jfit(x, y, w=None):
+        w = jnp.ones_like(x) if w is None else w
+        return jnp.linalg.lstsq(jnp.stack([x * w, w], axis=1), y * w)[0]
+
+    def fns(fit):
+        return dict(
+            min_fit=lambda d: fit(d.x, d.y),
+            residual_sq=lambda p, d: (p[0] * d.x + p[1] - d.y) ** 2,
+            refit=lambda d, w: fit(d.x, d.y, w))
+
+    d = LineData(T(xs), T(ys))
+    jd = LineData(jnp.asarray(xs), jnp.asarray(ys))
+    idx = ransac.draw_subsets(torch.Generator().manual_seed(4), 120, 32, 2)
+    params, scores = ransac.hypothesis_scores(
+        d, idx, min_fit=fns(fit)["min_fit"],
+        residual_sq=fns(fit)["residual_sq"], inlier_thresh_sq=1e-4)
+    jf = fns(jfit)
+    jparams = jax.vmap(lambda i: jf["min_fit"](
+        jax.tree_util.tree_map(lambda a: a[i], jd)))(jnp.asarray(idx.numpy()))
+    jscores = jnp.sum(jax.vmap(lambda p: jf["residual_sq"](p, jd))(jparams)
+                      < 1e-4, axis=1)
+    assert rel_err(params, jparams) < 1e-10
+    assert np.array_equal(scores.numpy(), np.asarray(jscores))
+    res = ransac.ransac(torch.Generator().manual_seed(0), d, subset_size=2,
+                        n_hyps=64, inlier_thresh_sq=1e-4, **fns(fit))
+    ref = jransac.ransac(jax.random.PRNGKey(0), jd, subset_size=2, n_hyps=64,
+                         inlier_thresh_sq=1e-4, **jf)
+    assert rel_err(res.params, ref.params) < 1e-10
+    assert np.array_equal(res.inlier_mask.numpy(), np.asarray(ref.inlier_mask))
 
 
 def test_ransac_draws():

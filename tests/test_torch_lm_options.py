@@ -23,6 +23,7 @@ from slam_tricks_tpu.solvers import banded_flat as jbf
 from slam_tricks_tpu.solvers import schur_flat_sm as jsm
 from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.solvers import banded_flat, schur_flat_sm
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 OPTIONS = dict(max_iters=15, lambda_init=1e-2)
 

@@ -40,6 +40,7 @@ from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.residuals import robust
 from slam_tricks_tpu_torch.sim import make_loop_scene
 from slam_tricks_tpu_torch.solvers import loop_flat
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 SCENES = {   # make_loop_scene arguments; max_band 3
     "compressed": dict(n_cams=16, n_points=200, track_len=3, seed=31),

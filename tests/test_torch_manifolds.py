@@ -28,6 +28,7 @@ from slam_tricks_tpu.manifolds import sim3 as jsim3
 from slam_tricks_tpu.manifolds import so2 as jso2
 from slam_tricks_tpu.manifolds import so3 as jso3
 from slam_tricks_tpu_torch.manifolds import manifold, se2, se3, sim3, so2, so3
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 _TOL = {np.float64: 1e-12, np.float32: 1e-6}
 _TDT = {np.float64: torch.float64, np.float32: torch.float32}

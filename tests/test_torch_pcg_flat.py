@@ -20,6 +20,7 @@ from slam_tricks_tpu.solvers import schur_flat as jflat
 from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.sim import make_trajectory_scene, perturb_scene
 from slam_tricks_tpu_torch.solvers import pcg_flat, schur_flat
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 f64 = torch.float64
 PERTURB = dict(pose_rot_noise=0.002, pose_trans_noise=0.01, point_noise=0.01)

@@ -47,6 +47,7 @@ from slam_tricks_tpu_torch.residuals import posegraph as res
 from slam_tricks_tpu_torch.sim import make_pose_graph
 from slam_tricks_tpu_torch.solvers import posegraph as pg
 from tests.test_posegraph_chain import make_graph
+from tests.torch_util import default_threads
 
 _REPO = Path(__file__).resolve().parents[1]
 _Q = dict(n=40, odo_noise=0.03, meas_noise=0.003, seed=2)
@@ -176,9 +177,10 @@ def test_compose_chain_matches_jax():
 def test_dense_solve_matches_jax(iters, graph_q, solves_q):
     _, prob = graph_q
     ref = solves_q[iters]
-    out = pg.solve_pose_graph(prob.poses_init, prob.i_idx, prob.j_idx,
-                              prob.Z, fixed_mask=prob.fixed_mask,
-                              max_iters=iters)
+    with default_threads():     # the floor's stop decision: see torch_util
+        out = pg.solve_pose_graph(prob.poses_init, prob.i_idx, prob.j_idx,
+                                  prob.Z, fixed_mask=prob.fixed_mask,
+                                  max_iters=iters)
     if iters == 4:
         assert out.it == int(ref.it) == 4 and not out.done
     else:       # the stop at the floor: see the module docstring

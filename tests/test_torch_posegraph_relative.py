@@ -31,6 +31,7 @@ from slam_tricks_tpu.solvers import posegraph as jpg
 from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.solvers import posegraph as pg
 from tests.test_posegraph_chain import make_graph
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 _TDT = {np.float64: torch.float64, np.float32: torch.float32}
 # bench.py:1220-1249, at the chain tests' N = 2048 and 16 loops

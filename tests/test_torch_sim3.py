@@ -26,6 +26,7 @@ from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.residuals import posegraph as res
 from slam_tricks_tpu_torch.solvers import posegraph_sim3 as ps
 from tests.test_sim3 import _mono_loop_graph
+from tests.torch_util import default_threads
 
 _TDT = {np.float64: torch.float64, np.float32: torch.float32}
 
@@ -75,10 +76,11 @@ def test_sim3_solve_matches_jax(dtype):
     ref = jax.block_until_ready(
         jps.solve_pose_graph_sim3(poses0, ii, jj, Z, info, max_iters=50))
     costs = []
-    out = ps.solve_pose_graph_sim3(
-        interop.sim3_from_jax(poses0, "cpu"), interop.tensor(ii, "cpu"),
-        interop.tensor(jj, "cpu"), interop.sim3_from_jax(Z, "cpu"),
-        interop.tensor(info, "cpu"), max_iters=50, costs=costs)
+    with default_threads():     # the floor's stop decision: see torch_util
+        out = ps.solve_pose_graph_sim3(
+            interop.sim3_from_jax(poses0, "cpu"), interop.tensor(ii, "cpu"),
+            interop.tensor(jj, "cpu"), interop.sim3_from_jax(Z, "cpu"),
+            interop.tensor(info, "cpu"), max_iters=50, costs=costs)
     assert out.poses.s.dtype == out.cost.dtype == _TDT[dtype]
     c = [float(x) for x in costs]
     assert all(b <= a for a, b in zip(c, c[1:]))

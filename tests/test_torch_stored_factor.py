@@ -23,6 +23,7 @@ from slam_tricks_tpu.sim import perturb_scene as jperturb_scene
 from slam_tricks_tpu.solvers import banded_flat as jbf
 from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.solvers import banded_flat
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 G, M = 12, 6
 

@@ -10,6 +10,7 @@ import torch
 from slam_tricks_tpu.sim import make_trajectory_scene as jmake_trajectory
 from slam_tricks_tpu_torch.device import resolve
 from slam_tricks_tpu_torch.sim import make_trajectory_scene
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 _TDT = {np.float64: torch.float64, np.float32: torch.float32}
 

@@ -18,6 +18,7 @@ import torch
 from slam_tricks_tpu.ops.pallas_tridiag import tridiag_solve as pallas_solve
 from slam_tricks_tpu.solvers.banded_flat import block_tridiag_solve_cr
 from slam_tricks_tpu_torch.ops import tridiag_solve as tri
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 
 def _system(G, m, seed=0, dtype=np.float64):

@@ -19,6 +19,7 @@ from slam_tricks_tpu.residuals import camera as jcam
 from slam_tricks_tpu_torch import interop
 from slam_tricks_tpu_torch.ops import _build
 from slam_tricks_tpu_torch.residuals import camera
+import tests.torch_util  # noqa: F401  (caps torch's threads)
 
 INTR = (458.654, 457.296, 367.215, 248.375)
 DIST = (-0.28340811, 0.07395907, 0.0, 0.00019359, 1.76187114e-05)
