@@ -95,6 +95,18 @@ through the kernels, each with every launch count set to 0 just before it:
   1000) on two frames 30 degrees apart and orb_match; CB,
   detect_chessboard on a rendered board of 7 x 9 interior corners; PAN,
   stitch of three overlapping crops with Harris and with ORB features;
+- the example programs (slam_tricks_tpu_torch.examples) at their default
+  sizes, float32 on the card, through their run(): ex_ba (30 cameras,
+  spd_solve at n = 180), ex_calibration (9 views, n = 63), ex_incremental
+  (64 cameras, ba_assemble and tridiag_solve), ex_pnp (no kernel),
+  ex_sim3 (96 keyframes, n = 672 and 576), ex_trajectory (512 cameras,
+  50,000 landmarks, tukey(0.02): ba_assemble and tridiag_solve),
+  ex_two_view and ex_vi, each gated on its own outcome; ex_ba,
+  ex_calibration, ex_pnp, ex_two_view, ex_sim3 and ex_vi also on the CPU
+  and held to it; ba_assemble at ex_trajectory's grid with its loss held
+  to plain in float64; the host utilities on the card (a profiler trace
+  naming an annotate region, ex_ba's BAState through a checkpoint, the
+  same bits, and Timer.lap against CUDA events);
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -108,7 +120,7 @@ start of matrix products) and bound, each phase's ms per LM iteration,
 iterations, final cost and launches, the card's name and power limit from
 nvidia-smi, and last the JSON status line. With --profile DIR it also writes
 torch.profiler tables of paths A, B, L, D, G, R and K to DIR. Paths M, H,
-Y, RS and the front end's run no kernel.
+Y, RS, the front end's and ex_pnp run no kernel.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
@@ -129,6 +141,10 @@ ROOT = Path(__file__).resolve().parent
 ASSEMBLE_REL_TOL = 1e-4     # per output, max |k - p| / max |p|: f32 sums in
 #                             another fixed order than plain's index_add_
 ASSEMBLE_REL_TOL_F64 = 1e-9     # the same in f64
+ASSEMBLE_F64_FACTOR = 10.0  # where f32's own rounding moves an output by more
+ASSEMBLE_F64_EPS = 1e-6     # (X's start, ex_trajectory's tukey grid): the
+#                             kernel's error off plain in f64 <= this x
+#                             plain's + this x the largest value
 SPD_RES_FACTOR = 10.0       # kernel residual <= this x the plain one (+ eps)
 SPD_RES_EPS = 1e-6          # (the eps: f32; 1e-14 in f64)
 SPD_RANDOM_REL_TOL = 5e-6   # x vs plain x on a well-conditioned SPD matrix
@@ -265,20 +281,35 @@ def check_same_bits(one, two, label):
                 f") and {', '.join(name for name, *_ in fields[1:])}")
 
 
-def captured_calls(targets, fn):
+def _shape_key(args):
+    """The shapes and dtypes of the tensors among a call's arguments."""
+    return tuple((tuple(x.shape), str(x.dtype)) for x in args
+                 if hasattr(x, "shape"))
+
+
+def captured_calls(targets, fn, per_shape=None, counts=None):
     """Runs fn with each (module, name) of `targets` (a kernel wrapper that
     a solver module imported) wrapped: for each, the list of the arguments
     of its calls, their first five tensors copied (the rest, a layout's
-    w, cam_of_slot and camera index, are the layout's own, unchanged)."""
+    w, cam_of_slot and camera index, are the layout's own, unchanged).
+    With `per_shape`, only the first `per_shape` calls at each _shape_key
+    are kept; `counts`, a dict, gets {target: {shape key: calls}}. Returns
+    fn's result last."""
     import torch
 
     got, real = {t: [] for t in targets}, {}
+    seen = {} if counts is None else counts
+    seen.update({t: {} for t in targets})
 
     def wrap(key, f):
         def call(*a):
-            got[key].append(tuple(
-                x.clone() if i < 5 and isinstance(x, torch.Tensor) else x
-                for i, x in enumerate(a)))
+            shapes = _shape_key(a)
+            n = seen[key].get(shapes, 0)
+            seen[key][shapes] = n + 1
+            if per_shape is None or n < per_shape:
+                got[key].append(tuple(
+                    x.clone() if i < 5 and isinstance(x, torch.Tensor) else x
+                    for i, x in enumerate(a)))
             return f(*a)
         return call
 
@@ -286,11 +317,11 @@ def captured_calls(targets, fn):
         real[(mod, name)] = getattr(mod, name)
         setattr(mod, name, wrap((mod, name), real[(mod, name)]))
     try:
-        fn()
+        out = fn()
     finally:
         for (mod, name), f in real.items():
             setattr(mod, name, f)
-    return [got[t] for t in targets]
+    return [*(got[t] for t in targets), out]
 
 
 def check_covariances(pose_cov, point_cov, fixed, obs, label):
@@ -500,7 +531,7 @@ def posegraph_paths(dev, run_phase, check_spd, phases, profile_dir=None):
 
     def first_system(fn):
         """The (S, b) of the first spd_solve call of fn."""
-        (calls,) = captured_calls([(posegraph, "spd_solve")], fn)
+        calls, _ = captured_calls([(posegraph, "spd_solve")], fn)
         return calls[0]
 
     def gate_run(label, out, cf, launches, ms, extra):
@@ -680,8 +711,9 @@ def _dense_tridiag(D, E):
 
 
 def check_tridiag_many(D, E, r, label, timed=False):
-    """tridiag_solve against plain on r (G, m, q): the residual against
-    plain's and, on a random system, x to TRI_RANDOM_REL_TOL (1e-9 in f64).
+    """tridiag_solve against plain on r (G, m, q) or (G, m): the residual
+    against plain's and, on a random system, x to TRI_RANDOM_REL_TOL (1e-9
+    in f64).
     With `timed`, also the kernels line's numbers: ms, device ms, plain ms,
     the library's dense Cholesky solve with q columns, and the bound."""
     import torch
@@ -691,7 +723,8 @@ def check_tridiag_many(D, E, r, label, timed=False):
     x_k = tridiag_solve.tridiag_solve(D, E, r)
     x_p = tridiag_solve.tridiag_solve_plain(D, E, r)
     torch.cuda.synchronize()
-    G, m, q = r.shape
+    G, m = r.shape[:2]
+    q = r.shape[2] if r.dim() == 3 else 1
     T64 = _dense_tridiag(D.double(), E.double())
     r64 = r.double().reshape(G * m, q)
     res_k = float((T64 @ x_k.double().reshape(G * m, q) - r64).norm()
@@ -852,7 +885,7 @@ def inertial_paths(dev, run_phase, check_spd, phases, profile_dir=None):
         raise AssertionError("path K: two runs differ in the bias")
     launches_of["K"] = launches
     # the kernel on K's own systems: the first iteration's [-g | U] (q = 7)
-    (calls,) = captured_calls([(vi_chain, "block_tridiag_solve")],
+    calls, _ = captured_calls([(vi_chain, "block_tridiag_solve")],
                               lambda: solve_k(1))
     tri["path_K_q7"] = check_tridiag_many(*(a.contiguous() for a in calls[0]),
                                           "path K first step", timed=True)
@@ -873,7 +906,7 @@ def inertial_paths(dev, run_phase, check_spd, phases, profile_dir=None):
                    f"{launches_of['K_cov']}")
     if launches_of["K_cov"]["tridiag_solve"] != 1:
         raise AssertionError(f"path K covariances: {launches_of['K_cov']}")
-    (calls,) = captured_calls([(vi_chain, "block_tridiag_solve")], cov_run)
+    calls, _ = captured_calls([(vi_chain, "block_tridiag_solve")], cov_run)
     tri["path_K_cov_q6"] = check_tridiag_many(
         *(a.contiguous() for a in calls[0]), "path K covariances",
         timed=True)
@@ -942,7 +975,7 @@ def inertial_paths(dev, run_phase, check_spd, phases, profile_dir=None):
     if not (cost_rel <= K64_COST_RTOL and pose_err <= K64_POSE_TOL):
         raise AssertionError(f"path K64: chain and dense differ: cost "
                              f"{cost_rel}, poses {pose_err}")
-    (calls,) = captured_calls([(common, "spd_solve")],
+    calls, _ = captured_calls([(common, "spd_solve")],
                               lambda: dense_solve(1))
     spd["path_K64_n582_float64"] = {**check_spd(*calls[0], "path K64 dense"),
                                     "launches": launches_d["spd_solve"]}
@@ -984,7 +1017,7 @@ def inertial_paths(dev, run_phase, check_spd, phases, profile_dir=None):
     if not abs(scale - 1.0) < N_SCALE_ERR:
         raise AssertionError(f"path N: scale {scale}")
     launches_of["N"] = launches_n
-    (calls,) = captured_calls([(common, "spd_solve")], lambda: ba_solve(1))
+    calls, _ = captured_calls([(common, "spd_solve")], lambda: ba_solve(1))
     spd["path_N_n294_float64"] = {**check_spd(*calls[0], "path N"),
                                   "launches": launches_n["spd_solve"]}
     phases["N"] = {"ms_per_lm_iter": ms_n, "iters": sol_n.iterations,
@@ -1090,8 +1123,6 @@ X_GATE_NOISE = 1e-4         # whose scene has noise 1e-4: at the bench's 1e-3
 #                             the optimum's t is 2.37e-3 off the truth, the
 #                             JAX package's f64 solve too; there the f32
 X_VS_F64_TOL = 1e-4         # solve is held to the f64 one of the scene
-X_START_FACTOR = 10.0       # ba_assemble at X's start: kernel's error off
-X_START_EPS = 1e-6          # f64 <= this x plain's + this x the largest
 GEO_M = dict(batch=8192, n_obs=32, iters=10, seed=4)   # bench.py:425-453
 M_COST_MAX = 1e-12          # M: the batch's largest cost, f32, noiseless data
 GEO_H = dict(n=8192, sweeps=10, seed=6)          # bench.py:477-505, f32
@@ -1186,7 +1217,7 @@ def geometry_paths(dev, run_phase, check_spd, check_assemble, phases):
     if not (fx_err < Z_F_ERR and fy_err < Z_F_ERR and rms < Z_RMS_MAX):
         raise AssertionError(f"path Z: fx {fx_err}, fy {fy_err}, RMS {rms}")
     launches_of["Z"] = launches
-    (calls,) = captured_calls([(common, "spd_solve")], lambda: refine(1))
+    calls, _ = captured_calls([(common, "spd_solve")], lambda: refine(1))
     spd["path_Z_n63_float32"] = {**check_spd(*calls[0], "path Z"),
                                  "launches": launches["spd_solve"]}
     phases["Z"] = {"init_ms": init_ms, "init_fx_err": fx0_err,
@@ -1222,7 +1253,7 @@ def geometry_paths(dev, run_phase, check_spd, check_assemble, phases):
             and curve_px < Z8_CURVE_PX and float(res9.rms_px) < Z9_RMS_MAX
             and fx9 < Z9_FX_ERR):
         raise AssertionError("path Z f64: a gate of the JAX tests failed")
-    (calls,) = captured_calls([(common, "spd_solve")],
+    calls, _ = captured_calls([(common, "spd_solve")],
                               lambda: calibration.calibrate(
                                   cs8.board_pts, cs8.image_pts, max_iters=1))
     spd["path_Z_n63_float64"] = check_spd(*calls[0], "path Z f64")
@@ -1280,7 +1311,7 @@ def geometry_paths(dev, run_phase, check_spd, check_assemble, phases):
             and launches0["spd_solve"] == 0):
         raise AssertionError(f"path X: launches {launches}, {launches0}")
     launches_of["X"] = launches
-    asm_calls, spd_calls = captured_calls(
+    asm_calls, spd_calls, _ = captured_calls(
         [(schur_flat_sm, "linearize_assemble"), (schur_flat_sm, "spd_solve")],
         lambda: solve_x(1))
     a_x = asm_calls[0]
@@ -1294,29 +1325,11 @@ def geometry_paths(dev, run_phase, check_spd, check_assemble, phases):
         ("err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by"),
         check_assemble(moved, a_x[7], "path X grid", a_x[8]))),
         "grid": list(a_x[5].shape), "launches": launches["ba_assemble"]}
-    out_k = ba_assemble.linearize_assemble(*a_x[:7], a_x[7], a_x[8])
-    out_p = ba_assemble.linearize_assemble_plain(*a_x[:7], a_x[8])
-    out_64 = ba_assemble.linearize_assemble_plain(
-        *(a.double() if a.is_floating_point() else a for a in a_x[:7]),
-        a_x[8])
-    worst = 0.0
-    for name, k_, p_, r_ in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
-                                out_k, out_p, out_64):
-        ek = float((k_.double() - r_).abs().max())
-        ep = float((p_.double() - r_).abs().max())
-        eps = X_START_EPS * float(r_.abs().max())
-        worst = max(worst, ek / (X_START_FACTOR * ep + eps))
-        if not ek <= X_START_FACTOR * ep + eps:
-            raise AssertionError(f"ba_assemble path X start {name}: kernel "
-                                 f"{ek} off f64, plain {ep}")
-    _log("ba_assemble", f"path X start: kernel and plain against plain in "
-                        f"f64 on the same inputs, worst kernel error / "
-                        f"({X_START_FACTOR} x plain's + {X_START_EPS} x "
-                        f"max) {worst:.3e} (pass <= 1)")
-    asm["path_X"]["start_vs_f64"] = worst
+    check_assemble(a_x[:7], a_x[7], "path X start", a_x[8], timed=False,
+                   ref64=True)
     spd["path_X_n12_float32"] = {**check_spd(*spd_calls[0], "path X"),
                                  "launches": it_x}
-    (calls,) = captured_calls([(schur_flat_sm, "spd_solve")],
+    calls, _ = captured_calls([(schur_flat_sm, "spd_solve")],
                               lambda: two_view.solve_two_view(
                                   tv64.uv1, tv64.uv2, refine_iters=1))
     spd["path_X_n12_float64"] = check_spd(*calls[0], "path X f64")
@@ -1887,6 +1900,316 @@ def frontend_paths(dev, run_phase, phases):
     return {"launches": launches_of}
 
 
+# ---- slice H: the example programs (paths ex_*) ----
+
+EX_KERNELS = {              # the kernels each example must launch on the card
+    "ex_ba": ("spd_solve",), "ex_calibration": ("spd_solve",),
+    "ex_incremental": ("ba_assemble", "tridiag_solve"), "ex_pnp": (),
+    "ex_sim3": ("spd_solve",),
+    "ex_trajectory": ("ba_assemble", "tridiag_solve"),
+    "ex_two_view": ("ba_assemble", "spd_solve"), "ex_vi": ("spd_solve",)}
+EX_ATE_RATIO = 0.5          # ex_ba, ex_trajectory: ATE below this x the
+#                             perturbed start's (JAX CPU runs: 0.31 and 0.32)
+EX_PNP_COST_MAX = M_COST_MAX    # ex_pnp: every cost, noiseless f32 data
+EX_PNP_POSE_ERR = 1e-4      # ex_pnp: R and t against the truth, f32
+EX_TV_CHEIRAL = 100         # ex_two_view: every point in front of both
+EX_VI_INIT_SCALE_ERR = 0.05     # ex_vi: vi_initialize's |scale - 1| (the
+#                                 JAX example on the CPU: 1.015)
+EX_CPU_RTOL = {             # card (f32) against the CPU (f64; ex_vi f32),
+    "ex_ba": 2e-4,          # max |card - cpu| / |cpu| over the numbers named
+    "ex_calibration": 1e-4,     # in EX_CPU_KEYS: ~3-4x what three H100 runs
+    "ex_two_view": 1e-3,        # read, the same in each (5.0e-5, 3.4e-5,
+    "ex_sim3": 7e-4,            # 2.3e-4, 1.7e-4, 8.6e-4)
+    "ex_vi": 3.5e-3}
+EX_CPU_KEYS = {
+    "ex_ba": ("initial_ate", "final_ate", "final_cost", "reprojection_rms"),
+    "ex_calibration": ("fx", "fy", "cx", "cy", "rms_px"),
+    "ex_two_view": ("rot_err", "t_err", "depth_err_median", "depth_err_max",
+                    "final_cost"),
+    "ex_sim3": ("drift_ate", "sim3_ate", "scale_err", "sim3_cost", "se3_ate",
+                "se3_cost"),
+    "ex_vi": ("dead_reckoning_ate", "observation_ate", "smoother_ate",
+              "bias_err", "vi_ba_scale", "vi_init_scale")}
+EX_TIMER_RTOL = 0.1         # Timer.lap(sync=) against CUDA events around the
+EX_TIMER_SLACK_MS = 5.0     # same call: events x (1 -+ this) (+ this ms);
+EX_TIMER_N = 8192           # the call: 8 f32 products of N^2 (~130 ms)
+EX_CAPTURE_PER_SHAPE = 2    # kept calls of a kernel at a shape: its second
+#                             is an LM loop's first step, past the start
+
+
+def examples_paths(dev, run_phase, check_spd, check_assemble, phases):
+    """The eight runnable example programs (slam_tricks_tpu_torch.examples:
+    ba, calibration, incremental, pnp, sim3_posegraph, trajectory_ba,
+    two_view, vi_smoother; kitti_vo needs frames the card machine lacks) at
+    their default sizes through their ``run``, float32 on the card, each
+    with every launch count set to 0 just before it (run_phase), each
+    launching the kernels of EX_KERNELS (ex_pnp none) and gated on its own
+    outcome; the six small ones also on the CPU (in float64, ex_vi float32)
+    and held to it (EX_CPU_RTOL). That one card run of each example also
+    captures its kernels' inputs (captured_calls, the first
+    EX_CAPTURE_PER_SHAPE calls at each shape, every call counted): every
+    launch must be a captured call, and each kernel is held against its
+    plain version at every shape the example gave it (the last captured
+    call there), timed beside its bound and the library. The host
+    utilities on the card: ex_two_view under ``utils.timer.profile_trace``
+    with an ``annotate`` region (the trace must name it), ex_ba's final
+    BAState through ``save_pytree`` / ``load_pytree`` onto the card (the
+    same bits), and ``Timer.lap(sync=)`` against CUDA events. Returns
+    {"spd": {label: numbers}, "assemble": {label: numbers}, "tridiag":
+    {label: numbers}, "launches": {path: counts}}."""
+    import tempfile
+
+    import torch
+
+    from slam_tricks_tpu_torch.examples import (ba_demo, calibration_demo,
+                                                incremental_demo, pnp_demo,
+                                                sim3_posegraph_demo,
+                                                trajectory_ba_demo,
+                                                two_view_demo,
+                                                vi_smoother_demo)
+    from slam_tricks_tpu_torch.solvers import (banded_flat, common,
+                                               posegraph, schur,
+                                               schur_flat_sm)
+    from slam_tricks_tpu_torch.utils import checkpoint, timer
+
+    modules = {"ex_ba": ba_demo, "ex_calibration": calibration_demo,
+               "ex_incremental": incremental_demo, "ex_pnp": pnp_demo,
+               "ex_sim3": sim3_posegraph_demo,
+               "ex_trajectory": trajectory_ba_demo,
+               "ex_two_view": two_view_demo, "ex_vi": vi_smoother_demo}
+    # where each example's solvers call the kernels' wrappers
+    banded = [(banded_flat, "linearize_assemble"),
+              (banded_flat, "tridiag_solve")]
+    targets = {"ex_ba": [(schur, "spd_solve")],
+               "ex_calibration": [(common, "spd_solve")],
+               "ex_incremental": banded, "ex_pnp": [],
+               "ex_sim3": [(posegraph, "spd_solve")],
+               "ex_trajectory": banded,
+               "ex_two_view": [(schur_flat_sm, "linearize_assemble"),
+                               (schur_flat_sm, "spd_solve")],
+               "ex_vi": [(common, "spd_solve")]}
+    kernel_of = {"linearize_assemble": "ba_assemble",
+                 "spd_solve": "spd_solve", "tridiag_solve": "tridiag_solve"}
+    t_start = time.perf_counter()
+    spd, asm, tri, launches_of, results, captured = {}, {}, {}, {}, {}, {}
+
+    def args_of(name, cpu):
+        return modules[name].build_parser().parse_args(["--cpu"] if cpu
+                                                       else [])
+
+    def numbers(out):
+        """The numbers of an example's returned dict (not its tensors)."""
+        return {k: v for k, v in out.items()
+                if isinstance(v, (int, float, list, tuple))
+                and not hasattr(v, "_fields")}
+
+    for name, mod in modules.items():
+        counts = {}
+        *calls, out = captured_calls(
+            targets[name], lambda: run_phase(
+                name, lambda costs: mod.run(args_of(name, False)),
+                iters_of=lambda o: 1),
+            per_shape=EX_CAPTURE_PER_SHAPE, counts=counts)
+        out, _, launches, ms = out
+        missing = [k for k in EX_KERNELS[name] if launches[k] < 1]
+        if missing or (not EX_KERNELS[name] and any(launches.values())):
+            raise AssertionError(f"{name}: launches {launches}, needs "
+                                 f"{EX_KERNELS[name] or 'none'}")
+        seen = {k: 0 for k in launches}
+        for (_, fname), by_shape in counts.items():
+            seen[kernel_of[fname]] += sum(by_shape.values())
+        if seen != launches:
+            raise AssertionError(f"{name}: launches {launches}, but the "
+                                 f"captured wrappers were called {seen}")
+        _log(name, f"{ms:.1f} ms (CUDA events around run(), the host's "
+                   f"set-up and the capture's copies included); launches "
+                   f"{launches}; {json.dumps(numbers(out))}")
+        launches_of[name] = launches
+        results[name] = out
+        captured[name] = [(t, c, counts[t])
+                          for t, c in zip(targets[name], calls)]
+        phases[name] = {"ms": ms, "launches": launches, **numbers(out)}
+    if results["ex_calibration"]["dataset"] != "synthetic":
+        raise AssertionError("ex_calibration ran on corner files, not on the "
+                             "synthetic scene its gates are for")
+
+    # ---- gates: each example's own outcome ----
+    r = results
+    costs = [*r["ex_ba"]["costs"], r["ex_calibration"]["rms_px"],
+             r["ex_incremental"]["init_cost"],
+             *(c for _, c, _ in r["ex_incremental"]["arrivals"]),
+             r["ex_incremental"]["warm_cost"],
+             r["ex_incremental"]["batch_cost"], r["ex_pnp"]["lm_cost"],
+             r["ex_pnp"]["gn_cost"], r["ex_pnp"]["analytic_cost"],
+             r["ex_pnp"]["batch_max_cost"], r["ex_sim3"]["sim3_cost"],
+             r["ex_sim3"]["se3_cost"], r["ex_trajectory"]["cost"],
+             r["ex_two_view"]["final_cost"]]
+    gates = {
+        "every cost finite": all(math.isfinite(c) for c in costs),
+        "ex_ba costs non-increasing": all(
+            b <= a for a, b in zip(r["ex_ba"]["costs"],
+                                   r["ex_ba"]["costs"][1:])),
+        f"ex_ba ATE < {EX_ATE_RATIO} x start": (
+            r["ex_ba"]["final_ate"]
+            < EX_ATE_RATIO * r["ex_ba"]["initial_ate"]),
+        f"ex_calibration |fx - 600|, |fy - 590| < {Z_F_ERR}": (
+            abs(r["ex_calibration"]["fx"] - GEO_Z_FX) < Z_F_ERR
+            and abs(r["ex_calibration"]["fy"] - GEO_Z_FY) < Z_F_ERR),
+        f"ex_calibration RMS < {Z_RMS_MAX} px": (
+            r["ex_calibration"]["rms_px"] < Z_RMS_MAX),
+        "ex_incremental rebatched ATE < streamed": (
+            r["ex_incremental"]["warm_ate"]
+            < r["ex_incremental"]["stream_ate"]),
+        f"ex_pnp costs < {EX_PNP_COST_MAX}": max(
+            r["ex_pnp"][k] for k in ("lm_cost", "gn_cost", "analytic_cost",
+                                     "batch_max_cost")) < EX_PNP_COST_MAX,
+        f"ex_pnp poses within {EX_PNP_POSE_ERR}": max(
+            r["ex_pnp"]["pose_err"], r["ex_pnp"]["batch_pose_err"])
+        < EX_PNP_POSE_ERR,
+        f"ex_sim3 scale error < {PG_S_SCALE_ERR}": (
+            r["ex_sim3"]["scale_err"] < PG_S_SCALE_ERR),
+        f"ex_sim3 ATE < {PG_S_ATE_RATIO} x the drifted map's": (
+            r["ex_sim3"]["sim3_ate"]
+            < PG_S_ATE_RATIO * r["ex_sim3"]["drift_ate"]),
+        f"ex_trajectory ATE < {EX_ATE_RATIO} x start": (
+            r["ex_trajectory"]["ate"]
+            < EX_ATE_RATIO * r["ex_trajectory"]["ate0"]),
+        "ex_trajectory covariances finite": r["ex_trajectory"]["cov_finite"],
+        f"ex_two_view cheirality {EX_TV_CHEIRAL}": (
+            r["ex_two_view"]["n_cheiral"] == EX_TV_CHEIRAL),
+        "ex_vi smoother ATE < the observations'": (
+            r["ex_vi"]["smoother_ate"] < r["ex_vi"]["observation_ate"]),
+        "ex_vi bias error falls": r["ex_vi"]["bias_err"]
+        < r["ex_vi"]["bias_err0"],
+        f"ex_vi VI-BA |scale - 1| < {N_SCALE_ERR}": (
+            abs(r["ex_vi"]["vi_ba_scale"] - 1.0) < N_SCALE_ERR),
+        f"ex_vi vi_initialize |scale - 1| < {EX_VI_INIT_SCALE_ERR}": (
+            abs(r["ex_vi"]["vi_init_scale"] - 1.0) < EX_VI_INIT_SCALE_ERR)}
+    failed = [g for g, ok in gates.items() if not ok]
+    _log("examples", f"gates: {len(gates) - len(failed)} of {len(gates)} "
+                     f"passed" + (f"; failed: {failed}" if failed else ""))
+    if failed:
+        raise AssertionError(f"examples: gates failed: {failed}")
+
+    # ---- the six small examples on the CPU, card against CPU ----
+    for name in EX_CPU_RTOL:
+        t0 = time.perf_counter()
+        cpu = modules[name].run(args_of(name, True))
+        cpu_s = time.perf_counter() - t0
+        worst = max(abs(r[name][k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+                    for k in EX_CPU_KEYS[name])
+        _log(name, f"card against the CPU ({cpu_s:.1f} s there): worst "
+                   f"relative difference {worst:.3e} over "
+                   f"{EX_CPU_KEYS[name]} (tol {EX_CPU_RTOL[name]})")
+        if not worst <= EX_CPU_RTOL[name]:
+            raise AssertionError(f"{name}: card against CPU {worst}")
+        phases[name]["vs_cpu"] = worst
+    pnp_cpu = pnp_demo.run(args_of("ex_pnp", True))
+    pnp_worst = max(pnp_cpu["pose_err"], pnp_cpu["batch_pose_err"],
+                    r["ex_pnp"]["pose_err"], r["ex_pnp"]["batch_pose_err"])
+    _log("ex_pnp", f"card f32 and CPU f64 both at the truth: largest pose "
+                   f"error {pnp_worst:.3e} (tol {EX_PNP_POSE_ERR}); CPU "
+                   f"costs {pnp_cpu['lm_cost']:.3e}, "
+                   f"{pnp_cpu['batch_max_cost']:.3e}")
+    if not pnp_worst < EX_PNP_POSE_ERR:
+        raise AssertionError(f"ex_pnp: card against CPU {pnp_worst}")
+    phases["ex_pnp"]["vs_cpu"] = pnp_worst
+
+    # ---- each kernel against plain at every shape an example gave it ----
+    for name, per_target in captured.items():
+        for (_, fname), calls, by_shape in per_target:
+            last = {_shape_key(c): c for c in calls}
+            for key, c in last.items():
+                n_calls = by_shape[key]
+                if fname == "spd_solve":
+                    label = (f"{name}_n{c[0].shape[0]}_"
+                             f"{str(c[0].dtype).rsplit('.', 1)[1]}")
+                    spd[label] = {**check_spd(*c[:2], label),
+                                  "launches": n_calls}
+                elif fname == "tridiag_solve":
+                    G, m = c[2].shape[:2]
+                    q = c[2].shape[2] if c[2].dim() == 3 else 1
+                    label = f"{name}_G{G}_m{m}_q{q}"
+                    tri[label] = {**check_tridiag_many(
+                        *(a.contiguous() for a in c[:3]), label, timed=True),
+                        "launches": n_calls}
+                else:
+                    # kernel and plain each held to plain in float64 of the
+                    # same inputs (ref64): near tukey(0.02)'s threshold and
+                    # at a two-view start (each landmark at its rays'
+                    # midpoint) float32's own rounding moves gl by more
+                    # than ASSEMBLE_REL_TOL
+                    K, L = c[5].shape
+                    label = f"{name}_C{c[0].shape[0]}_K{K}_L{L}"
+                    asm[label] = {**dict(zip(
+                        ("err", "ms", "plain_ms", "device_ms", "bound_ms",
+                         "bound_by"),
+                        check_assemble(c[:7], c[7], label, c[8],
+                                       ref64=True))),
+                        "grid": [K, L], "launches": n_calls,
+                        "loss": None if c[8] is None
+                        else f"{c[8].kind}({c[8].param:g})"}
+    del captured, calls, last, c
+
+    # ---- the host utilities on the card ----
+    with tempfile.TemporaryDirectory() as tmp:
+        with timer.profile_trace(tmp):
+            with timer.annotate("ex_two_view"):
+                two_view_demo.run(args_of("ex_two_view", False))
+        trace = Path(tmp) / "trace.json"
+        text = trace.read_text() if trace.is_file() else ""
+        n_kernels = text.count('"cat": "kernel"')
+        _log("utils.timer", f"profile_trace of ex_two_view: {trace.name} "
+                            f"{len(text)} bytes, names the annotate region: "
+                            f"{'ex_two_view' in text}, CUDA kernel events "
+                            f"{n_kernels}")
+        if "ex_two_view" not in text or n_kernels < 1:
+            raise AssertionError("profile_trace: no trace naming the region "
+                                 "with CUDA kernels")
+        state = results["ex_ba"]["state"]
+        path = checkpoint.save_pytree(str(Path(tmp) / "ba_state.npz"), state)
+        back = checkpoint.load_pytree(path, state)
+    leaves, leaves_back = (checkpoint.tree_leaves(state),
+                           checkpoint.tree_leaves(back))
+    same = len(leaves) == len(leaves_back) and all(
+        torch.equal(a, b) and b.is_cuda if isinstance(a, torch.Tensor)
+        else a == b for a, b in zip(leaves, leaves_back))
+    _log("utils.checkpoint", f"ex_ba's BAState through save_pytree / "
+                             f"load_pytree onto {back.points.device}: the "
+                             f"same bits in every leaf: {same}")
+    if not same:
+        raise AssertionError("checkpoint: the BAState came back changed")
+
+    busy = torch.ones((EX_TIMER_N, EX_TIMER_N), device=dev)
+    work = lambda: [busy @ busy for _ in range(8)][-1]  # noqa: E731
+    work()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = timer.Timer()
+    start.record()
+    out = work()
+    end.record()
+    lap_ms = t.lap("matmuls", sync=out) * 1e3
+    event_ms = start.elapsed_time(end)
+    _log("utils.timer", f"Timer.lap(sync=) {lap_ms:.3f} ms against CUDA "
+                        f"events {event_ms:.3f} ms around the same 8 "
+                        f"products of {EX_TIMER_N}^2")
+    if not (event_ms * (1 - EX_TIMER_RTOL) <= lap_ms
+            <= event_ms * (1 + EX_TIMER_RTOL) + EX_TIMER_SLACK_MS):
+        raise AssertionError(f"Timer.lap {lap_ms} ms, events {event_ms} ms")
+    phases["utils"] = {"timer_lap_ms": lap_ms, "timer_event_ms": event_ms,
+                       "trace_kernel_events": n_kernels,
+                       "checkpoint_same_bits": same}
+    del busy, out, results, state, back
+    wall = time.perf_counter() - t_start
+    _log("examples", f"paths ex_* with their CPU runs and kernel checks: "
+                     f"{wall:.1f} s of wall time")
+    phases["examples"] = {"wall_s": wall}
+    return {"spd": spd, "assemble": asm, "tridiag": tri,
+            "launches": launches_of}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -1945,29 +2268,49 @@ def main():
                   f"{time.perf_counter() - t0:.2f} s "
                   f"(nvcc {' '.join(_build.NVCC_FLAGS)}, one process a source)")
 
-    def check_assemble(args_, index, label, loss=None, timed=True):
+    def check_assemble(args_, index, label, loss=None, timed=True,
+                       ref64=False):
         """Kernel 1 against plain on args_ (the kernel with the layout's
         camera index), and two launches against each other bitwise; with
         `timed`, returns (max |k - p|, ms, plain ms, device ms, bound ms,
-        bound_by), else (max |k - p|,)."""
+        bound_by), else (max |k - p|,). With ref64 (inputs where float32's
+        own rounding moves an output by more than ASSEMBLE_REL_TOL), kernel
+        and plain are each held to plain in float64 on the same inputs:
+        the kernel's error at most ASSEMBLE_F64_FACTOR x plain's +
+        ASSEMBLE_F64_EPS x the largest value."""
         out_k = ba_assemble.linearize_assemble(*args_, index, loss)
         out_p = ba_assemble.linearize_assemble_plain(*args_, loss)
         out_k2 = ba_assemble.linearize_assemble(*args_, index, loss)
+        out_64 = (ba_assemble.linearize_assemble_plain(
+            *(a.double() if a.is_floating_point() else a for a in args_),
+            loss) if ref64 else out_p)
         torch.cuda.synchronize()
         tol = (ASSEMBLE_REL_TOL if args_[0].dtype == torch.float32
                else ASSEMBLE_REL_TOL_F64)
         if loss is not None:
             label = f"{label} {loss.kind}({loss.param:g})"
         err = 0.0
-        for name, a, b, a2 in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
-                                  out_k, out_p, out_k2):
+        for name, a, b, a2, r in zip(("Hpp", "gp", "Hll", "gl", "W", "cost"),
+                                     out_k, out_p, out_k2, out_64):
             rel = _rel(a, b)
             err = max(err, float((a - b).abs().max()))
-            _log("ba_assemble", f"{label} {name} {tuple(a.shape)} max rel err "
-                                f"{rel:.3e}")
-            if not rel <= tol:
-                raise AssertionError(f"ba_assemble {label} {name}: rel err "
-                                     f"{rel} > {tol}")
+            if ref64:
+                ek = float((a.double() - r).abs().max())
+                ep = float((b.double() - r).abs().max())
+                bound = ASSEMBLE_F64_FACTOR * ep + ASSEMBLE_F64_EPS * float(
+                    r.abs().max())
+                _log("ba_assemble", f"{label} {name} {tuple(a.shape)} max "
+                                    f"rel err {rel:.3e}; against plain in "
+                                    f"f64: kernel {ek:.3e}, plain {ep:.3e}")
+                if not ek <= bound:
+                    raise AssertionError(f"ba_assemble {label} {name}: "
+                                         f"kernel {ek} off f64, plain {ep}")
+            else:
+                _log("ba_assemble", f"{label} {name} {tuple(a.shape)} max "
+                                    f"rel err {rel:.3e}")
+                if not rel <= tol:
+                    raise AssertionError(f"ba_assemble {label} {name}: rel "
+                                         f"err {rel} > {tol}")
             if not torch.equal(a, a2):
                 raise AssertionError(f"ba_assemble {label} {name}: two "
                                      f"launches differ")
@@ -2784,7 +3127,7 @@ def main():
         # the kernels at W's shapes: window 1's first call of each
         head = se3.SE3(poses0_w.R[:36], poses0_w.t[:36])
         diag_h = []
-        asm_calls, spd_calls = captured_calls(
+        asm_calls, spd_calls, _ = captured_calls(
             [(schur_flat_sm, "linearize_assemble"), (schur_flat, "spd_solve")],
             lambda: diag_h.extend(sweep(head)[2]))
         same = ("w0", "n_obs", "it")
@@ -2915,6 +3258,10 @@ def main():
     # (no kernel) ----
     fe = frontend_paths(dev, run_phase, phases)
 
+    # ---- 11o. paths ex_*: slice H, the example programs, and the host
+    # utilities on the card ----
+    ex = examples_paths(dev, run_phase, check_spd, check_assemble, phases)
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -2985,7 +3332,7 @@ def main():
                    "I": launches_i, "E": launches_e,
                    **{k: v["launches"] for k, v in phases.items()
                       if "launches" in v}, **vi["launches"],
-                   **geo["launches"], **fe["launches"]}
+                   **geo["launches"], **fe["launches"], **ex["launches"]}
     by_path = {name: {path: n[name] for path, n in launches_of.items()
                       if n[name]}
                for name in ("ba_assemble", "spd_solve", "tridiag_solve")}
@@ -2997,7 +3344,8 @@ def main():
          "launches_by_path": by_path["ba_assemble"],
          "max_abs_err": max(k1["err"], k1b["err"], k1l["err"], k1g["err"],
                             k1p["err"], *(k["err"] for k in k1w.values()),
-                            geo["assemble"]["path_X"]["err"]),
+                            geo["assemble"]["path_X"]["err"],
+                            *(k["err"] for k in ex["assemble"].values())),
          "loss_max_abs_err": loss_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "device_ms": k1["device_ms"],
@@ -3023,7 +3371,8 @@ def main():
                     "bound_ms": k1p["bound_ms"], "bound_by": k1p["bound_by"]},
          **{f"path_w_{name}": {key: k[key] for key in k1_keys}
             for name, k in k1w.items()},
-         "path_x": geo["assemble"]["path_X"]},
+         "path_x": geo["assemble"]["path_X"],
+         **ex["assemble"]},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
@@ -3033,21 +3382,22 @@ def main():
                                      (*k2_big.values(), *k2w.values(),
                                       *k2_pg.values(),
                                       *vi["spd"].values(),
-                                      *geo["spd"].values()))),
+                                      *geo["spd"].values(),
+                                      *ex["spd"].values()))),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
          "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "n6144_path_d": k2_big["D"], "n6144_path_g": k2_big["G"],
          **{f"path_w_{name}": k for name, k in k2w.items()},
          **{f"path_{name}": k for name, k in k2_pg.items()},
-         **vi["spd"], **geo["spd"]},
+         **vi["spd"], **geo["spd"], **ex["spd"]},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",
          "launches": sum(by_path["tridiag_solve"].values()),
          "launches_by_path": by_path["tridiag_solve"],
-         "max_abs_err": max(k3_abs, *(k["max_abs_err"]
-                                      for k in vi["tridiag"].values())),
+         "max_abs_err": max(k3_abs, *(k["max_abs_err"] for k in (
+             *vi["tridiag"].values(), *ex["tridiag"].values()))),
          "ms": k3_ms, "plain_ms": k3_plain_ms, "device_ms": k3_device_ms,
          "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
@@ -3056,7 +3406,7 @@ def main():
                   "bound_by": kw_by, "library_ms": kw_lib_ms},
          **{name: {**k, "launches": by_path["tridiag_solve"].get(path, 0)}
             for name, path in (("path_K_q7", "K"), ("path_K_cov_q6", "K_cov"))
-            for k in (vi["tridiag"][name],)}},
+            for k in (vi["tridiag"][name],)}, **ex["tridiag"]},
         {"name": "undistort", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/undistort.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_undistort.py:23",

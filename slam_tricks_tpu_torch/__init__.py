@@ -30,7 +30,9 @@ Zhang calibration (``pipelines.calibration.calibrate``), X, the two-view
 pipeline (``pipelines.solve_two_view``), M, batched PnP
 (``solvers.solve_pnp_batched``), H, ICP (``residuals.icp.icp_iterate``),
 Y, the generic Newton undistortion (``residuals.undistort_points_gn``),
-and RS, RANSAC and robust epipolar estimation (``initialization``).
+and RS, RANSAC and robust epipolar estimation (``initialization``); the
+image front end (FO, SD, LK, DA, ORB, CB, PAN); and the host utilities
+and the example programs (paths ex_*).
 
 - ``manifolds``  SO(2), SE(2), SO(3), SE(3) and Sim(3), batched over
                  leading dimensions, and the manifold combinators
@@ -72,7 +74,19 @@ and RS, RANSAC and robust epipolar estimation (``initialization``).
                  (Newton undistortion)
 - ``interop``    numpy / JAX-package state -> the port's tensors (also the
                  preintegrated segments, the VI simulation, the ESKF and
-                 INS states, the calibration and two-view scenes)
+                 INS states, the calibration and two-view scenes, and a
+                 checkpoint file the JAX package wrote)
+- ``config``     frozen solver, BA and RANSAC settings, dict round trips
+- ``utils``      the leveled logger, timers and the torch.profiler trace
+                 (each waiting for the CUDA device of its tensors),
+                 checkpoints of nests of tensors, corner files and the
+                 TUM / EuRoC / KITTI readers (host numpy)
+- ``viz``        the Hessian sparsity image, trajectory and scene plots
+                 (matplotlib, imported when a plot is drawn), CSV export
+- ``examples``   the nine example programs of the JAX package's
+                 ``examples/``, each ``python -m
+                 slam_tricks_tpu_torch.examples.<name> [--cpu]``: on the
+                 card unless given ``--cpu``
 
 Importing the package needs neither CUDA nor ``nvcc``: the kernels are built
 with ``nvcc`` at their first launch on a CUDA tensor (``ops/_build.py``).

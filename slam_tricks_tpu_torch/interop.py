@@ -10,7 +10,8 @@ Each function takes the JAX package's objects (``se3.SE3``, ``sim3.Sim3``,
 fields numpy can read, copies every array through numpy and returns the
 port's counterpart on `device`, the card unless the caller names another
 (``device="cpu"``). Nothing here imports jax: a JAX array is
-read as a numpy array.
+read as a numpy array. ``checkpoint_from_jax`` reads a checkpoint file the
+JAX package wrote.
 """
 
 import numpy as np
@@ -41,6 +42,7 @@ from slam_tricks_tpu_torch.solvers.schur_flat import (flat_work_from_table,
                                                       obs_slots)
 from slam_tricks_tpu_torch.solvers.schur_flat_sm import SlotWork, slot_tables
 from slam_tricks_tpu_torch.solvers.sliding_window import WindowPrior
+from slam_tricks_tpu_torch.utils.checkpoint import read_leaves
 
 
 def tensor(a, device=None):
@@ -246,3 +248,15 @@ def eskf_state_from_jax(state, device=None):
 def ins_state_from_jax(state, device=None):
     """INSState: lat, lon, h, v_ned (3,), q_nb (4,)."""
     return INSState(*(tensor(f, device) for f in state))
+
+
+def checkpoint_from_jax(path, like, device=None):
+    """A ``.npz`` written by the JAX package's ``utils.checkpoint.save_pytree``
+    (e.g. a ``BAState``) as the port's nest `like` (e.g. the port's
+    ``BAState``): the leaves in ``jax.tree_util``'s order, which
+    ``utils.checkpoint`` shares, checked against `like`'s leaf count and
+    shapes (not the stored structure string, which names JAX classes),
+    tensors to `like`'s dtypes on `device`, the card unless the caller names
+    another."""
+    with np.load(path) as data:
+        return read_leaves(data, like, resolve(device))

@@ -138,7 +138,12 @@ def tree_map(f, x):
 def linearize(residual_fn, manifold, x, args=()):
     """(r0 (k,), J (k, dim)) in tangent coordinates: forward-mode
     ``torch.func.jacfwd`` of r(retract(x, delta)) at delta = 0, r0 from
-    the same pass. residual_fn must not write in place."""
+    the same pass, J in r0's dtype. residual_fn must not write in place.
+
+    The cast is needed: in forward mode, a 0-d float32 tensor times a
+    Python number can carry a float64 tangent (torch 2.13 on the CPU:
+    ``jacfwd(lambda d: 0.25 * d[0])`` is float64), so a float32 residual
+    through ``so3.log`` would give a float64 J."""
     x0 = leaves(x)[0]
     zero = torch.zeros(manifold.dim, dtype=x0.dtype, device=x0.device)
 
@@ -147,7 +152,7 @@ def linearize(residual_fn, manifold, x, args=()):
         return r, r
 
     J, r0 = torch.func.jacfwd(r_of_delta, has_aux=True)(zero)
-    return r0, J
+    return r0, J.to(r0.dtype)
 
 
 def solve_damped_normal(H, g, lam, use_marquardt_scaling=True):

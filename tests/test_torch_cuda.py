@@ -28,7 +28,11 @@ the same bits; ba_assemble at the large-C grid (1024 cameras, K = 464)
 and at the two-view grid (K = 2, L = 2000) as above, and spd_solve at
 n = 6144 and at the geometric slice's n = 12 and 63; the front end's
 paths (FO, SD, LK, DA, ORB, CB, PAN: no kernel) in f64 against the CPU at
-the CPU tests' sizes."""
+the CPU tests' sizes; the host utilities on the card (Timer.lap waits for
+queued products: within 10% + 5 ms of CUDA events around them; a
+checkpoint of CUDA tensors loads onto the card and onto the CPU, the same
+bits) and an example run on the card by default, its numbers within 5e-3
+relative of its --cpu run."""
 
 import numpy as np
 import pytest
@@ -1007,3 +1011,69 @@ def test_frontend_path_on_cuda_matches_cpu(path):
             assert torch.equal(torch.isfinite(a), fin)
             assert rel_err(a[fin], b[fin]) < (1e-8 if path in ("LK", "DA")
                                               else 1e-9)
+
+
+# ---- slice H: the host utilities and the example programs on the card ----
+
+def test_timer_lap_waits_for_queued_work():
+    """Timer.lap(sync=out) reads the clock only after out's device is done:
+    it is at least the CUDA events' time around the same products, while a
+    lap without sync reads only the queueing."""
+    from slam_tricks_tpu_torch.utils.timer import Timer
+
+    dev = require_cuda()
+    a = torch.ones((8192, 8192), device=dev)
+    (a @ a).sum().item()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t, t_nosync = Timer(), Timer()
+    start.record()
+    out = [a @ a for _ in range(8)][-1]
+    end.record()
+    queued_ms = t_nosync.lap("queued") * 1e3
+    lap_ms = t.lap("products", sync=out) * 1e3
+    event_ms = start.elapsed_time(end)
+    assert event_ms * 0.9 <= lap_ms <= event_ms * 1.1 + 5.0
+    assert queued_ms < 0.5 * event_ms
+
+
+def test_checkpoint_of_cuda_tensors_loads_onto_cuda(tmp_path):
+    """save_pytree of a BAState on the card; load_pytree into a like on the
+    card gives the same bits there, into a like on the CPU the same bits on
+    the CPU."""
+    from slam_tricks_tpu_torch.manifolds import se3
+    from slam_tricks_tpu_torch.solvers.common import tree_map
+    from slam_tricks_tpu_torch.solvers.schur import BAState
+    from slam_tricks_tpu_torch.utils.checkpoint import (load_pytree,
+                                                        save_pytree,
+                                                        tree_leaves)
+
+    dev = require_cuda()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    state = BAState(poses=se3.exp(torch.randn(4, 6, generator=g)),
+                    points=torch.randn(5, 3, generator=g), cost=torch.tensor(
+                        0.5), lam=torch.tensor(1e-4), nu=torch.tensor(2.0),
+                    it=7, done=False)
+    on_card = tree_map(lambda x: x.to(dev), state)
+    path = save_pytree(str(tmp_path / "state.npz"), on_card)
+    for like in (on_card, state):
+        back = load_pytree(path, like)
+        for a, b in zip(tree_leaves(on_card), tree_leaves(back)):
+            if isinstance(a, torch.Tensor):
+                assert b.device == tree_leaves(like)[0].device
+                assert torch.equal(a.cpu(), b.cpu())
+            else:
+                assert a == b
+
+
+def test_example_runs_on_cuda_by_default():
+    """An example without --cpu runs on the card (float32), with --cpu on
+    the CPU (float64), and the two agree."""
+    from slam_tricks_tpu_torch.examples import two_view_demo
+
+    require_cuda()
+    card = two_view_demo.main([])
+    cpu = two_view_demo.main(["--cpu"])
+    assert card["n_cheiral"] == cpu["n_cheiral"] == 100
+    for k in ("rot_err", "t_err", "final_cost"):
+        assert abs(card[k] - cpu[k]) <= 5e-3 * abs(cpu[k])

@@ -1,9 +1,17 @@
 """Helpers of the tests that hold the torch port against the JAX package."""
 
 import contextlib
+import importlib.util
+import io
+import logging
+import re
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
+
+ROOT = Path(__file__).resolve().parents[1]
 
 # The default test run puts 6 pytest-xdist workers on the host's cores,
 # each beside XLA's own threads; torch's default of one intra-op thread a
@@ -46,3 +54,74 @@ def peak_set(scores, rows, cols, ndigits=9):
     c = np.asarray(cols.cpu() if isinstance(cols, torch.Tensor) else cols)
     return {(int(a), int(b), round(float(v), ndigits))
             for a, b, v in zip(r, c, s) if np.isfinite(v)}
+
+
+class RecordCollector(logging.Handler):
+    """A logging handler that keeps the records it is given."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+@contextlib.contextmanager
+def collect_records(logger_name):
+    """The records the named logger emits inside the block, at INFO and
+    above, collected by a handler of the test's own (loggers are global by
+    name: both packages' examples log to the same object). Yields the
+    list."""
+    log = logging.getLogger(logger_name)
+    handler = RecordCollector()
+    level = log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        yield handler.records
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+def run_jax_example(name, argv, logger_name=None):
+    """examples/<name>.py (the JAX package's example) loaded by file path
+    and its main() run in this process with sys.argv = [<file>, *argv]:
+    (the args of each record its logger emitted, its stdout). The JAX
+    matmul precision it sets is restored after."""
+    import jax
+
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"jax_example_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    precision = jax.config.jax_default_matmul_precision
+    argv_before, out = sys.argv, io.StringIO()
+    sys.argv = [str(path), *argv]
+    try:
+        with collect_records(logger_name or name) as records, \
+                contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        sys.argv = argv_before
+        jax.config.update("jax_default_matmul_precision", precision)
+    return [r.args for r in records], out.getvalue()
+
+
+def run_port_example(module, argv, logger_name=None):
+    """The port's example `module`'s main(argv): (its returned dict, the
+    args of each record its logger emitted, its stdout)."""
+    out = io.StringIO()
+    name = module.__name__.rsplit(".", 1)[1]
+    with collect_records(logger_name or name) as records, \
+            contextlib.redirect_stdout(out):
+        result = module.main(argv)
+    return result, [r.args for r in records], out.getvalue()
+
+
+def printed_numbers(text):
+    """Every number in `text`, in order, as floats."""
+    return [float(v) for v in re.findall(
+        r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?", text)]
