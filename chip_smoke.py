@@ -107,6 +107,21 @@ through the kernels, each with every launch count set to 0 just before it:
   to plain in float64; the host utilities on the card (a profiler trace
   naming an annotate region, ex_ba's BAState through a checkpoint, the
   same bits, and Timer.lap against CUDA events);
+- the distributed solvers (slam_tricks_tpu_torch.parallel) on two gloo
+  ranks, spawned processes that share the card, each path beside its
+  single-process path of this run (the same iteration count, the first
+  accepted step's cost within a stated f32 tolerance, its final-cost
+  gate) and the ranks' final poses, points and costs bitwise equal:
+  dist_banded (B's scene, 12 iterations), dist_loop (L's), dist_pcg (B's
+  scene, P's 5 iterations and CG settings), dist_sharded and dist_lmlocal
+  (A's scene, 20 iterations, spd_solve replicated at n = 576); every
+  kernel of a path launched on every rank, each rank's all_reduce calls
+  and bytes an LM iteration counted on rank 0 and the largest operand
+  held to the JAX tests' pose-sized caps; ba_assemble against plain at
+  every grid the ranks give it (rank 0's slice of B's grid, of L's
+  single-run grid and its landmark-local flat grid of dist_pcg, the
+  cameras without a slot exact zeros) and at a pad-heavy slice,
+  spd_solve at dist_sharded's replicated system;
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -2210,6 +2225,407 @@ def examples_paths(dev, run_phase, check_spd, check_assemble, phases):
             "launches": launches_of}
 
 
+# ---- slice G: the distributed solvers, two gloo ranks on one card ----
+
+DIST_RANKS = 2              # rank processes, all on cuda:0 (gloo: NCCL
+#                             refuses two ranks on one device)
+DIST_PG_TIMEOUT_S = 300.0   # a collective that waits longer raises
+DIST_JOIN_TIMEOUT_S = 600.0     # the ranks' whole run, set-up included
+DIST_FIRST_REL_TOL = 5e-5   # the first accepted step's cost against the
+#                             single-process path's, f32, at the paths' own
+#                             sizes: the H100 read 1.0e-7 (B), 1.8e-6 (L)
+#                             and 1.4e-6 (A), the CPU's plain versions up to
+#                             2.6e-5 (B); only the summation order across
+#                             ranks differs
+DIST_PCG_FIRST_REL_TOL = 2e-4   # dist_pcg's: CG in f32 stops on a residual
+#                             at its noise floor, so its step moves more
+#                             with the order (the H100 2.1e-5, the CPU 5.3e-5
+#                             at B's size)
+DIST_PAD_SCENE = dict(n_cams=16, n_points=240, track_len=4, seed=73)
+DIST_PAD_RANKS = 3          # tests/test_torch_parallel_solvers.py's uneven
+#                             split: the last slice holds pad chunks
+
+
+def _dist_rank(rank, world, tmpdir, device):
+    """One rank of dist_paths, a spawned process on `device`: joins the gloo
+    group through tmpdir's file store, loads the kernel library the parent
+    built, and runs each path of tmpdir/payload.pt (moved to the card,
+    timed apart; a 2-iteration warm-up, in which rank 0 captures the
+    tensors of the first call of the path's `capture` (solver module,
+    kernel wrapper) when it names one; then the solve with every launch
+    count set to 0, CUDA events around it and each all_reduce's operand
+    recorded). Writes its results to tmpdir/rank<rank>.pt, or its
+    traceback to rank<rank>.err."""
+    import importlib
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    tmp = Path(tmpdir)
+    try:
+        sys.path.insert(0, str(ROOT))
+        from slam_tricks_tpu_torch.ops import (_build, ba_assemble, spd_solve,
+                                               tridiag_solve, undistort)
+        from slam_tricks_tpu_torch.parallel import multihost
+        from slam_tricks_tpu_torch.solvers.common import set_full_precision
+
+        ops = (ba_assemble, spd_solve, tridiag_solve, undistort)
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        set_full_precision()
+        multihost.initialize_multihost(f"file://{tmp / 'store'}", world, rank,
+                                       timeout_s=DIST_PG_TIMEOUT_S)
+        group = multihost.global_obs_mesh()
+        _build.library()            # the parent's build, loaded
+        out = {}
+        for name, make, kw, args, capture in torch.load(
+                tmp / "payload.pt", weights_only=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            args = multihost.make_global_array(args, group, dev)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            warm = make(group, **{**kw, "max_iters": 2})
+            captured = None
+            if capture is not None and rank == 0:
+                mod = importlib.import_module(
+                    f"slam_tricks_tpu_torch.solvers.{capture[0]}")
+                calls_, _ = captured_calls([(mod, capture[1])],
+                                           lambda: warm(*args))
+                captured = tuple(a.cpu() for a in calls_[0]
+                                 if isinstance(a, torch.Tensor))
+            else:
+                warm(*args)
+            solve = make(group, **kw)
+            torch.cuda.synchronize()
+            _reset_counts(*ops)
+            costs, calls = [], []
+            real = dist.all_reduce
+
+            def counted(t, *a, **k):
+                calls.append((t.numel(), t.numel() * t.element_size()))
+                return real(t, *a, **k)
+
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            dist.all_reduce = counted
+            try:
+                start.record()
+                state = solve(*args, costs=costs)
+                end.record()
+                end.synchronize()
+            finally:
+                dist.all_reduce = real
+            out[name] = {
+                "it": state.it, "costs": [float(c) for c in costs],
+                "R": state.poses.R.cpu(), "t": state.poses.t.cpu(),
+                "points": state.points.cpu(), "cost": state.cost.cpu(),
+                "ms": start.elapsed_time(end) / max(state.it, 1),
+                "setup_s": setup_s, "calls": calls, "captured": captured,
+                "launches": {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
+                             for m in ops}}
+            del args, state
+        torch.save(out, tmp / f"rank{rank}.pt")
+    except BaseException:
+        (tmp / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dist_paths(dev, scenes, singles, check_assemble, check_spd, phases):
+    """Slice G: the distributed solvers (slam_tricks_tpu_torch.parallel) on
+    DIST_RANKS gloo ranks that share the card, each path at full width and
+    set beside its single-process path of this run:
+
+    - dist_banded: make_ba_solver_banded_dist on path B's scene, 12
+      iterations (ba_assemble on each rank's chunks, tridiag_solve
+      replicated);
+    - dist_loop: make_ba_solver_loop_dist on path L's scene, max_band 8,
+      12 iterations (the loop-closure part replicated);
+    - dist_pcg: make_ba_solver_pcg_dist on path B's scene, path P's 5
+      iterations and CG settings;
+    - dist_sharded and dist_lmlocal: make_ba_solver and
+      make_ba_solver_landmark_local on path A's scene, 20 iterations
+      (spd_solve replicated at n = 576).
+
+    scenes: {"A", "B", "L": (obs, poses0, points0, fixed)}, the very inputs
+    of those paths; singles: {"A", "B", "L", "P": that path's costs}. The
+    works are built here on the host, once, and handed to the ranks (a
+    file in a temporary directory); the kernel library is built before
+    (the ranks only load it). Gates, each path: the ranks' final poses,
+    points, cost and costs the same bits; the single-process path's
+    iteration count; its first accepted step's cost within
+    DIST_FIRST_REL_TOL (dist_pcg: DIST_PCG_FIRST_REL_TOL); its final-cost
+    gate; every kernel of the path
+    launched on every rank; on rank 0 the largest all_reduce operand of
+    the banded, loop and PCG paths (the final gather of the points, once a
+    solve, apart) within the JAX tests' pose-sized caps. Then each kernel
+    against plain, timed, at every grid the ranks gave it: ba_assemble at
+    rank 0's slice of B's grid (dist_banded), at rank 0's slice of L's
+    single-run grid and at rank 0's landmark-local flat grid (the first
+    calls of dist_loop and dist_pcg, captured on rank 0), where the
+    cameras with no live slot on the rank must get exact zeros, and at
+    the last, pad-heavy slice of a DIST_PAD_RANKS-way split of
+    DIST_PAD_SCENE (untimed); spd_solve at the replicated system of
+    dist_sharded's first step (captured on rank 0). A rank that fails,
+    hangs past DIST_JOIN_TIMEOUT_S or disagrees fails the run. Returns
+    {"launches": {path: counts summed over the ranks}, "assemble": {label:
+    numbers}, "spd": {label: numbers}}."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from slam_tricks_tpu_torch.ops import ba_assemble
+    from slam_tricks_tpu_torch.parallel import (banded_dist, landmark_local,
+                                                loop_dist, partition,
+                                                pcg_dist, sharded_ba)
+    from slam_tricks_tpu_torch.parallel.multihost import make_global_array
+    from slam_tricks_tpu_torch.sim import make_trajectory_scene, perturb_scene
+
+    t_start = time.perf_counter()
+    D = DIST_RANKS
+    f32 = torch.float32
+    cpu = lambda x: make_global_array(x, None, "cpu")  # noqa: E731
+    obs_a, *state_a = cpu(scenes["A"])
+    obs_b, *state_b = cpu(scenes["B"])
+    obs_l, *state_l = cpu(scenes["L"])
+    C_b = state_b[0].t.shape[0]
+    L_a, L_b, L_l = (s[1].shape[0] for s in (state_a, state_b, state_l))
+    C_l = state_l[0].t.shape[0]
+
+    t0 = time.perf_counter()
+    work_b = banded_dist.build_dist_banded_work(obs_b, C_b, L_b, D,
+                                                dtype=f32)
+    work_l = loop_dist.build_dist_loop_work(obs_l, C_l, L_l, D, dtype=f32,
+                                            max_band=8)
+    work_p = pcg_dist.build_dist_work(
+        partition.partition_obs_by_landmark(obs_b, D), C_b, L_b, D,
+        dtype=f32)
+    part_a = partition.partition_obs_by_landmark(obs_a, D)
+    pairs_a = partition.build_local_pairs(part_a, D, dtype=f32)
+    setup_s = time.perf_counter() - t0
+    K_b = work_b.local[0].w.shape[0]
+    K_l = work_l.banded_local[0].w.shape[0]
+    banded_cap = lambda K, C: K * C * 36 * 4 * 2  # noqa: E731
+    # (name, single path, make, kwargs, args, kernels, final-cost gate,
+    #  all_reduce cap in bytes or None, the final gather's values or None,
+    #  the (solver module, kernel wrapper) whose first call rank 0
+    #  captures for a kernel check, or None)
+    specs = [
+        ("dist_banded", "B", banded_dist.make_ba_solver_banded_dist,
+         dict(max_iters=12), (state_b[0], state_b[1], work_b, state_b[2]),
+         ("ba_assemble", "tridiag_solve"), B_FINAL_COST_MAX,
+         banded_cap(K_b, C_b), 4 * L_b, None),
+        ("dist_loop", "L", loop_dist.make_ba_solver_loop_dist,
+         dict(max_iters=12), (state_l[0], state_l[1], work_l, state_l[2]),
+         ("ba_assemble",), B_FINAL_COST_MAX, banded_cap(K_l, C_l), 4 * L_l,
+         ("banded_flat", "linearize_assemble")),
+        ("dist_pcg", "P", pcg_dist.make_ba_solver_pcg_dist,
+         dict(max_iters=5, cg_iters=50, cg_tol=1e-6),
+         (state_b[0], state_b[1], work_p, state_b[2]), ("ba_assemble",),
+         P_FINAL_COST_MAX, C_b * 6 * 6 * 4 * 2, 4 * L_b,
+         ("schur_flat_sm", "linearize_assemble")),
+        ("dist_sharded", "A", sharded_ba.make_ba_solver, dict(max_iters=20),
+         (state_a[0], state_a[1], part_a, pairs_a, state_a[2]),
+         ("spd_solve",), FINAL_COST_MAX, None, None, ("schur", "spd_solve")),
+        ("dist_lmlocal", "A", landmark_local.make_ba_solver_landmark_local,
+         dict(max_iters=20),
+         (state_a[0], state_a[1], part_a, pairs_a, state_a[2]),
+         ("spd_solve",), FINAL_COST_MAX, None, 4 * L_a, None),
+    ]
+    _log("dist", f"{D} ranks: the works of paths B ({len(work_b.local)} "
+                 f"slices of {work_b.local[0].w.shape[1]} slots, K={K_b}), "
+                 f"L (K={K_l}, {work_l.lc.lc_w.shape[1]} loop-closure "
+                 f"slots replicated), P (local grids "
+                 f"{tuple(work_p.flat[0].slot.w.shape)}) and A "
+                 f"({part_a.cam_idx.shape[0] // D} rows a rank) built on the "
+                 f"host in {setup_s:.2f} s")
+
+    # the ranks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        torch.save([(name, make, kw, args, capture)
+                    for name, _, make, kw, args, *_, capture in specs],
+                   tmp / "payload.pt")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_dist_rank,
+                             args=(rank, D, tmpdir, str(dev)))
+                 for rank in range(D)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_JOIN_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [(tmp / f"rank{r}.err").read_text() for r in range(D)
+                  if (tmp / f"rank{r}.err").exists()]
+        if hung or errors or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"dist: ranks hung {hung}, exit codes "
+                                 f"{[p.exitcode for p in procs]}\n"
+                                 + "\n".join(errors))
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(D)]
+        ranks_s = time.perf_counter() - t0
+    _log("dist", f"{D} rank processes ran every path in {ranks_s:.1f} s "
+                 f"(spawn, group, loading the work and the library "
+                 f"included)")
+
+    launches = {}
+    for (name, single, _, _, args, kernels, gate, cap, gather,
+         _) in specs:
+        r0 = ranks[0][name]
+        for r, other in enumerate(ranks[1:], 1):
+            o = other[name]
+            same = (o["it"] == r0["it"] and o["costs"] == r0["costs"]
+                    and all(torch.equal(o[k], r0[k])
+                            for k in ("R", "t", "points", "cost")))
+            if not same:
+                raise AssertionError(f"{name}: rank {r} differs from rank 0")
+        c = r0["costs"]
+        _log(name, f"{r0['it']} LM iterations, cost {c[0]:.6e} -> "
+                   f"{c[-1]:.6e}; {r0['ms']:.4f} ms per LM iteration on rank "
+                   f"0 (CUDA events); set-up on the card "
+                   f"{r0['setup_s']:.2f} s; ranks bitwise equal in poses, "
+                   f"points, cost and every step's cost")
+        _log(name, "costs " + " ".join(f"{v:.4e}" for v in c))
+        _check_costs(c, gate, name)
+        sc = singles[single]
+        first = next(v for v in c[1:] if v < c[0])
+        first_s = next(v for v in sc[1:] if v < sc[0])
+        rel = abs(first - first_s) / first_s
+        tol = (DIST_PCG_FIRST_REL_TOL if name == "dist_pcg"
+               else DIST_FIRST_REL_TOL)
+        _log(name, f"path {single} (one process): {len(sc) - 1} iterations, "
+                   f"first accepted step's cost {first_s:.8e}, here "
+                   f"{first:.8e}: rel {rel:.3e} (bound {tol})")
+        if r0["it"] != len(sc) - 1 or not rel <= tol:
+            raise AssertionError(f"{name}: {r0['it']} iterations against "
+                                 f"{len(sc) - 1}, first step rel {rel} > "
+                                 f"{tol}")
+        C_, L_ = args[0].t.shape[0], args[1].shape[0]
+        if (r0["R"].shape != (C_, 3, 3) or r0["points"].shape != (L_, 3)
+                or not torch.isfinite(r0["points"]).all()
+                or not torch.isfinite(r0["R"]).all()):
+            raise AssertionError(f"{name} returned malformed or non-finite "
+                                 f"state")
+        by_rank = [rk[name]["launches"] for rk in ranks]
+        if any(n[k] < 1 for n in by_rank for k in kernels):
+            raise AssertionError(f"{name} skipped a kernel: {by_rank}")
+        launches[name] = {k: sum(n[k] for n in by_rank) for k in by_rank[0]}
+        calls = r0["calls"]
+        loop_calls = [b for n, b in calls if n != gather]
+        gathers = [b for n, b in calls if n == gather]
+        it = max(r0["it"], 1)
+        ar = {"calls": len(calls), "bytes": sum(b for _, b in calls),
+              "calls_per_iter": len(loop_calls) / it,
+              "bytes_per_iter": sum(loop_calls) / it,
+              "max_operand_bytes": max(loop_calls), "cap_bytes": cap,
+              "gather_bytes": sum(gathers)}
+        _log(name, f"launches (both ranks) {launches[name]}, by rank "
+                   f"{by_rank}; all_reduce on rank 0: {ar['calls']} calls, "
+                   f"{ar['bytes']} bytes; an LM iteration "
+                   f"{ar['calls_per_iter']:.1f} calls, "
+                   f"{ar['bytes_per_iter']:.0f} bytes (the start's "
+                   f"linearization included, the final gather of "
+                   f"{ar['gather_bytes']} bytes not), largest operand "
+                   f"{ar['max_operand_bytes']} bytes (cap {cap})")
+        if gather is not None and len(gathers) != 1:
+            raise AssertionError(f"{name}: {len(gathers)} gathers of the "
+                                 f"points")
+        if cap is not None and not ar["max_operand_bytes"] <= cap:
+            raise AssertionError(f"{name}: an all_reduce of "
+                                 f"{ar['max_operand_bytes']} bytes > {cap}")
+        phases[name] = {"ms_per_lm_iter": r0["ms"], "iters": r0["it"],
+                        "final_cost": c[-1], "first_step_rel": rel,
+                        "launches": launches[name],
+                        "launches_by_rank": by_rank, "all_reduce": ar,
+                        "setup_host_s": setup_s,
+                        "setup_card_s": r0["setup_s"]}
+
+    # the kernels against plain at the ranks' grids
+    def slice_args(bw, poses, points):
+        bw = make_global_array(bw, None, dev)
+        poses, points = make_global_array((poses, points), None, dev)
+        return ((poses.R.reshape(bw.n_cams, 9).contiguous(), poses.t,
+                 points[bw.gather_idx].contiguous(), bw.uv0, bw.uv1, bw.w,
+                 bw.cam_of_slot), bw.cam_index)
+
+    def captured_args(name):
+        args_ = tuple(a.to(dev) for a in ranks[0][name]["captured"])
+        return args_, ba_assemble.camera_index(args_[5], args_[6],
+                                               args_[0].shape[0])
+
+    sc = make_trajectory_scene(dtype=f32, device="cpu", **DIST_PAD_SCENE)
+    # perturbed, as B's start: at the truth the residuals are zero and gp
+    # is rounding alone, no measure of the kernel
+    pad_state = perturb_scene(sc, pose_rot_noise=0.002,
+                              pose_trans_noise=0.01, point_noise=0.01,
+                              seed=DIST_PAD_SCENE["seed"] + 1)[:2]
+    pad_work = banded_dist.build_dist_banded_work(
+        sc.obs, sc.n_cams, sc.n_points, DIST_PAD_RANKS, dtype=f32).local[-1]
+    asm = {}
+    for label, path, (args_, index) in (
+            ("dist_banded rank 0 slice", "dist_banded",
+             slice_args(work_b.local[0], state_b[0], state_b[1])),
+            ("dist_loop rank 0 slice", "dist_loop",
+             captured_args("dist_loop")),
+            ("dist_pcg rank 0 local grid", "dist_pcg",
+             captured_args("dist_pcg")),
+            ("pad-heavy slice", None, slice_args(pad_work, *pad_state))):
+        timed = path is not None
+        got = check_assemble(args_, index, label, timed=timed)
+        out_k = ba_assemble.linearize_assemble(*args_, index)
+        w, cam = args_[5], args_[6]
+        C = args_[0].shape[0]
+        seen = torch.zeros(C, dtype=torch.bool, device=dev)
+        seen[cam[w > 0].long()] = True
+        absent = int((~seen).sum())
+        zeros = bool((out_k[0][~seen] == 0).all()
+                     and (out_k[1][~seen] == 0).all())
+        dead = int((w == 0).sum())
+        pad = (None if timed else
+               int((pad_work.scatter_idx >= pad_work.n_points).sum()))
+        of_pad = "" if pad is None else f" ({pad} of pad chunks)"
+        _log("ba_assemble", f"{label}: grid {tuple(w.shape)}, {dead} slots "
+                            f"of weight 0{of_pad}, {absent} of {C} cameras "
+                            f"with no live slot: their Hpp and gp rows exact "
+                            f"zeros: {zeros}")
+        if not zeros or (not timed and (absent == 0 or pad == 0)):
+            raise AssertionError(f"ba_assemble {label}: {absent} cameras "
+                                 f"without a slot, {pad} pad slots, their "
+                                 f"rows zero: {zeros}")
+        keys = ("err", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")
+        asm[label] = {**dict(zip(keys, got)), "grid": list(w.shape),
+                      "dead_slots": dead, "cameras_without_slot": absent}
+        if timed:
+            asm[label]["launches"] = launches[path]["ba_assemble"]
+        else:
+            asm[label]["pad_slots"] = pad
+    del out_k, args_, index
+
+    S_, b_ = ranks[0]["dist_sharded"]["captured"]
+    spd = {"dist_sharded_n576": {
+        **check_spd(S_.to(dev), b_.to(dev), "dist_sharded replicated S"),
+        "launches": launches["dist_sharded"]["spd_solve"]
+        + launches["dist_lmlocal"]["spd_solve"]}}
+    wall = time.perf_counter() - t_start
+    _log("dist", f"paths dist_* with their kernel checks: {wall:.1f} s of "
+                 f"wall time")
+    phases["dist"] = {"wall_s": wall, "ranks": D, "ranks_s": ranks_s}
+    return {"launches": launches, "assemble": asm, "spd": spd}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -2802,6 +3218,7 @@ def main():
                  "path B, 3 LM iterations")
     final_b_cost = c[-1]
     final_b_poses = final.poses
+    costs_b = c
     del args_b, tpoints_s
 
     # ---- 11b. reference: small f64 loop and stream solves, card vs CPU ----
@@ -2913,6 +3330,7 @@ def main():
         _profile(lambda: solve_l(3), args.profile / "path_l.txt",
                  "path L, 3 LM iterations")
     final_l_cost = c[-1]
+    costs_l = c
 
     # the plain torch stored-factor loop at path L's system (G = 128)
     (Hpp_l, _, Hll_l, _, W_l), _ = banded_flat._banded_quantities(
@@ -2937,6 +3355,7 @@ def main():
                    f"{stored_ms['factor_ms']:.3f} ms, forward and backward of "
                    f"{1 + width} columns {stored_ms['forward_ms']:.3f} and "
                    f"{stored_ms['backward_ms']:.3f} ms")
+    lobs = lscene.obs
     del lscene, lw, lbw, fac_l, Rl, Dl, El
 
     # ---- 11d. path I: the incremental smoother on path B's scene ----
@@ -3051,6 +3470,7 @@ def main():
     check_state(final_p, CB, LB_, "path P")
     phases["P"] = {"ms_per_lm_iter": ms, "iters": final_p.it,
                    "final_cost": cf[-1], "launches": launches_p}
+    costs_p = cf
     del final_p, work_p, pcg_p, slot_p
 
     # ---- 11g. path W: the sliding-window smoother on path B's scene, in
@@ -3262,6 +3682,16 @@ def main():
     # utilities on the card ----
     ex = examples_paths(dev, run_phase, check_spd, check_assemble, phases)
 
+    # ---- 11p. paths dist_*: slice G, the distributed solvers on two gloo
+    # ranks that share the card, each beside its single-process path ----
+    dist_out = dist_paths(
+        dev, {"A": (scene.obs, poses0, points0, fixed),
+              "B": (tscene.obs, tposes0, tpoints0, tfixed),
+              "L": (lobs, lposes0, lpoints0, lfixed)},
+        {"A": costs_a, "B": costs_b, "L": costs_l, "P": costs_p},
+        check_assemble, check_spd, phases)
+    del lobs
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -3332,7 +3762,8 @@ def main():
                    "I": launches_i, "E": launches_e,
                    **{k: v["launches"] for k, v in phases.items()
                       if "launches" in v}, **vi["launches"],
-                   **geo["launches"], **fe["launches"], **ex["launches"]}
+                   **geo["launches"], **fe["launches"], **ex["launches"],
+                   **dist_out["launches"]}
     by_path = {name: {path: n[name] for path, n in launches_of.items()
                       if n[name]}
                for name in ("ba_assemble", "spd_solve", "tridiag_solve")}
@@ -3345,7 +3776,9 @@ def main():
          "max_abs_err": max(k1["err"], k1b["err"], k1l["err"], k1g["err"],
                             k1p["err"], *(k["err"] for k in k1w.values()),
                             geo["assemble"]["path_X"]["err"],
-                            *(k["err"] for k in ex["assemble"].values())),
+                            *(k["err"] for k in ex["assemble"].values()),
+                            *(k["err"]
+                              for k in dist_out["assemble"].values())),
          "loss_max_abs_err": loss_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "device_ms": k1["device_ms"],
@@ -3372,7 +3805,7 @@ def main():
          **{f"path_w_{name}": {key: k[key] for key in k1_keys}
             for name, k in k1w.items()},
          "path_x": geo["assemble"]["path_X"],
-         **ex["assemble"]},
+         **ex["assemble"], "dist": dist_out["assemble"]},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
@@ -3383,14 +3816,15 @@ def main():
                                       *k2_pg.values(),
                                       *vi["spd"].values(),
                                       *geo["spd"].values(),
-                                      *ex["spd"].values()))),
+                                      *ex["spd"].values(),
+                                      *dist_out["spd"].values()))),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
          "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "n6144_path_d": k2_big["D"], "n6144_path_g": k2_big["G"],
          **{f"path_w_{name}": k for name, k in k2w.items()},
          **{f"path_{name}": k for name, k in k2_pg.items()},
-         **vi["spd"], **geo["spd"], **ex["spd"]},
+         **vi["spd"], **geo["spd"], **ex["spd"], **dist_out["spd"]},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",

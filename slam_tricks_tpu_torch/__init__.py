@@ -31,8 +31,9 @@ pipeline (``pipelines.solve_two_view``), M, batched PnP
 (``solvers.solve_pnp_batched``), H, ICP (``residuals.icp.icp_iterate``),
 Y, the generic Newton undistortion (``residuals.undistort_points_gn``),
 and RS, RANSAC and robust epipolar estimation (``initialization``); the
-image front end (FO, SD, LK, DA, ORB, CB, PAN); and the host utilities
-and the example programs (paths ex_*).
+image front end (FO, SD, LK, DA, ORB, CB, PAN); the host utilities and
+the example programs (paths ex_*); and the distributed solvers
+(``parallel``, paths dist_*).
 
 - ``manifolds``  SO(2), SE(2), SO(3), SE(3) and Sim(3), batched over
                  leading dimensions, and the manifold combinators
@@ -72,6 +73,10 @@ and the example programs (paths ex_*).
                  (reduced camera system), ``tridiag_solve`` (block-tridiagonal
                  systems, one or many right-hand sides), ``undistort``
                  (Newton undistortion)
+- ``parallel``   the distributed BA solvers over a ``torch.distributed``
+                 process group, one process a rank (observation-sharded,
+                 landmark-local, banded, loop-closure, PCG), the landmark
+                 partition and the group's set-up (``multihost``)
 - ``interop``    numpy / JAX-package state -> the port's tensors (also the
                  preintegrated segments, the VI simulation, the ESKF and
                  INS states, the calibration and two-view scenes, and a

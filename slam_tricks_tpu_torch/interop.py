@@ -5,6 +5,8 @@ Each function takes the JAX package's objects (``se3.SE3``, ``sim3.Sim3``,
 ``PoseGraphProblem``, ``posegraph.ChainGraphWork``, ``BAObservations``, ``schur_flat_sm.SlotWork``, ``banded_flat.BandedWork``,
 ``loop_flat.LoopWork``, ``schur_flat.FlatWork``, ``pcg_flat.PCGWork``,
 ``schur.TrackPairs``, ``pcg.BandPairs``, ``sliding_window.WindowPrior``,
+``parallel``'s ``LocalPairs``, ``DistBandedWork``, ``DistLoopWork`` and
+``DistPCGWork``,
 ``camera.Intrinsics``, ``camera.DistCoeffs``, ``CalibScene``,
 ``TwoViewScene``, ``OrbFeatures``, ``LidarSweep``) or anything else whose
 fields numpy can read, copies every array through numpy and returns the
@@ -26,6 +28,10 @@ from slam_tricks_tpu_torch.frontend.orb import OrbFeatures
 from slam_tricks_tpu_torch.manifolds.se3 import SE3
 from slam_tricks_tpu_torch.manifolds.sim3 import Sim3
 from slam_tricks_tpu_torch.ops.ba_assemble import layout_index
+from slam_tricks_tpu_torch.parallel.banded_dist import DistBandedWork
+from slam_tricks_tpu_torch.parallel.loop_dist import DistLoopWork
+from slam_tricks_tpu_torch.parallel.partition import LocalPairs
+from slam_tricks_tpu_torch.parallel.pcg_dist import DistPCGWork
 from slam_tricks_tpu_torch.residuals.camera import DistCoeffs, Intrinsics
 from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
 from slam_tricks_tpu_torch.sim.calib_scene import CalibScene
@@ -212,6 +218,71 @@ def pcg_work_from_jax(pcg_work, flat_work, device=None):
     return pcg_work_from_tables(tables, obs_slots(table),
                                 table.obs_idx.shape[0], resolve(device),
                                 dtype)
+
+
+def _device_slice(x, d):
+    """Device d's slice of a JAX nest stacked on a leading device axis, as
+    the same nest type of numpy arrays (None kept)."""
+    if x is None:
+        return None
+    if hasattr(x, "_fields"):
+        return type(x)(*(_device_slice(f, d) for f in x))
+    return np.array(x)[d]
+
+
+def local_pairs_from_jax(pairs, device=None):
+    """``parallel.partition.LocalPairs`` (n_devices, n_chunks, chunk)."""
+    return LocalPairs(*(tensor(a, device) for a in pairs))
+
+
+def dist_banded_work_from_jax(work, device=None):
+    """The JAX DistBandedWork as the port's: each device's slice of its
+    stacked BandedWork through ``banded_work_from_jax``."""
+    D = np.array(work.local.weight).shape[0]
+    return DistBandedWork(
+        local=tuple(banded_work_from_jax(_device_slice(work.local, d),
+                                         work.n_points, device)
+                    for d in range(D)),
+        n_points=int(work.n_points))
+
+
+def dist_loop_work_from_jax(work, device=None):
+    """The JAX DistLoopWork: its banded slices as in
+    ``dist_banded_work_from_jax``, the whole LoopWork through
+    ``loop_work_from_jax``."""
+    D = np.array(work.banded_local.weight).shape[0]
+    return DistLoopWork(
+        banded_local=tuple(banded_work_from_jax(
+            _device_slice(work.banded_local, d), work.n_points, device)
+            for d in range(D)),
+        lc=loop_work_from_jax(work.lc, work.n_points, device),
+        n_points=int(work.n_points))
+
+
+def dist_pcg_work_from_jax(work, device=None):
+    """The JAX DistPCGWork: each device's slice of its stacked FlatWork
+    (built with a camera table, so the port's has no B table) and PCGWork
+    through ``flat_work_from_jax`` and ``pcg_work_from_jax``."""
+    D = np.array(work.obs_cam).shape[0]
+    C = np.array(work.pcg.cam_table).shape[1]
+    flat, pcgw = [], []
+    for d in range(D):
+        obs = BAObservations(cam_idx=np.array(work.obs_cam)[d],
+                             lm_idx=np.array(work.obs_lm)[d],
+                             uv=np.array(work.obs_uv)[d],
+                             weight=np.array(work.obs_w)[d])
+        fw_d = _device_slice(work.flat, d)
+        fw = flat_work_from_jax(fw_d, obs, C, device)
+        flat.append(fw._replace(slot=fw.slot._replace(b_table=None)))
+        pcgw.append(pcg_work_from_jax(_device_slice(work.pcg, d), fw_d,
+                                      device))
+    return DistPCGWork(
+        obs_cam=tensor(work.obs_cam, device),
+        obs_lm=tensor(work.obs_lm, device),
+        obs_uv=tensor(work.obs_uv, device), obs_w=tensor(work.obs_w, device),
+        flat=tuple(flat), pcg=tuple(pcgw),
+        lm_global=tensor(work.lm_global, device).long(),
+        n_points_local=int(work.n_points_local), n_points=int(work.n_points))
 
 
 def track_pairs_from_jax(pairs, device=None):

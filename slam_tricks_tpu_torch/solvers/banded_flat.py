@@ -49,7 +49,7 @@ from slam_tricks_tpu_torch.ops.ba_assemble import (CameraIndex, layout_index,
 from slam_tricks_tpu_torch.ops.tridiag_solve import tridiag_solve
 from slam_tricks_tpu_torch.residuals import robust
 from slam_tricks_tpu_torch.solvers.common import (associative_scan,
-                                                  first_camera_fixed,
+                                                  first_camera_fixed, psum,
                                                   set_full_precision,
                                                   sum_table, table_sum)
 from slam_tricks_tpu_torch.solvers.schur import lm_loop
@@ -161,13 +161,18 @@ def chunk_table(c0, K, C):
     return sum_table(((c0[None, :] + k) % C).reshape(-1), C)
 
 
-def _banded_quantities(poses, points_s, bw: BandedWork, loss=None):
+def _banded_quantities(poses, points_s, bw: BandedWork, loss=None,
+                       psum_axis=None):
     """Linearize + assemble on the slot grid: (Hpp (C, 21), gp (C, 6),
-    Hll (6, Lpad), gl (3, Lpad), W (18, K, Lpad)), cost."""
+    Hll (6, Lpad), gl (3, Lpad), W (18, K, Lpad)), cost. psum_axis: a
+    process group whose ranks each hold a slice of the chunks
+    (``parallel/banded_dist``): Hpp, gp and the cost are summed over the
+    ranks in one ``all_reduce``, the landmark side stays the rank's own."""
     C = bw.n_cams
     Hpp, gp, Hll, gl, W, cost = linearize_assemble(
         poses.R.reshape(C, 9), poses.t, points_s, bw.uv0, bw.uv1, bw.w,
         bw.cam_of_slot, bw.cam_index, loss)
+    Hpp, gp, cost = psum((Hpp, gp, cost), psum_axis)
     return (Hpp, gp, Hll, gl, W), cost
 
 
@@ -208,10 +213,13 @@ def _backsub(dp, free, W, hinv, gl, bw: BandedWork):
     return _mat3vec(hinv, -gl - t).T
 
 
-def _assemble_bands(Hpp, Hll, W, lam, fixed_mask, bw: BandedWork):
+def _assemble_bands(Hpp, Hll, W, lam, fixed_mask, bw: BandedWork,
+                    psum_axis=None):
     """Damped, gauge-fixed band blocks S[c + o, c] of the reduced camera
     system, bands (K, C, 6, 6), and the landmark inverse hinv (6, Lpad), the
-    Marquardt diagonals dpp (C, 6), dll (3, Lpad) and free (C,)."""
+    Marquardt diagonals dpp (C, 6), dll (3, Lpad) and free (C,). psum_axis:
+    the K band downdates are the rank's part, summed over the group's ranks
+    in one ``all_reduce`` of (K, C, 36) before the damped Hpp is added."""
     dtype, device = Hpp.dtype, Hpp.device
     C = bw.n_cams
     K = W.shape[1]
@@ -233,7 +241,7 @@ def _assemble_bands(Hpp, Hll, W, lam, fixed_mask, bw: BandedWork):
                 + Y[:, 1, None, o:] * W3[None, :, 1, :K - o]
                 + Y[:, 2, None, o:] * W3[None, :, 2, :K - o])   # (6, 6, K-o, Lpad)
         bands.append(-_cam_sum(prod.reshape(36, K - o, -1), bw))
-    bands = torch.stack(bands).view(K, C, 6, 6)
+    bands = psum((torch.stack(bands),), psum_axis)[0].view(K, C, 6, 6)
     bands[0] += Hpp_d
 
     # gauge: zero rows and columns of fixed cameras, unit diagonal; rows
@@ -282,16 +290,19 @@ def _group_superblocks(bands, C):
 
 
 def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
-                          bw: BandedWork):
+                          bw: BandedWork, psum_axis=None):
     """The damped, gauge-fixed reduced camera system as a super-block
     tridiagonal: (Dm (G, m, m), Em (G-1, m, m), rm (G, m), hinv (6, Lpad),
     dpp (C, 6), dll (3, Lpad), free (C,)); the last four are what the
-    back-substitution and the LM step need."""
+    back-substitution and the LM step need. psum_axis: the bands and the
+    right-hand side's landmark part are summed over the group's ranks, so
+    that every rank holds the same system."""
     C = bw.n_cams
     bands, hinv, dpp, dll, free = _assemble_bands(Hpp, Hll, W, lam,
-                                                  fixed_mask, bw)
+                                                  fixed_mask, bw, psum_axis)
     # rhs: b = -(gp - W Hll^-1 gl), zero on the padding cameras
-    b = -(gp - _cam_rhs(W, hinv, gl, bw)) * free[:, None]
+    y = psum((_cam_rhs(W, hinv, gl, bw),), psum_axis)[0]
+    b = -(gp - y) * free[:, None]
     Dm, Em, Kb = _group_superblocks(bands, C)
     rm = torch.zeros((Dm.shape[0] * Kb, 6), dtype=b.dtype, device=b.device)
     rm[:C] = b
@@ -307,20 +318,23 @@ def block_tridiag_solve(D, E, r):
     return tridiag_solve(D.contiguous(), E.contiguous(), r.contiguous())
 
 
-def _solve_banded(Hpp, gp, Hll, gl, W, lam, fixed_mask, bw: BandedWork):
+def _solve_banded(Hpp, gp, Hll, gl, W, lam, fixed_mask, bw: BandedWork,
+                  psum_axis=None):
     """Damped, gauge-fixed exact solve of the reduced camera system by the
     super-block tridiagonal solve, then the landmark back-substitution.
-    Returns (dp (C, 6), dl (Lpad, 3), diag_pp (C, 6), diag_ll (Lpad, 3))."""
+    Returns (dp (C, 6), dl (Lpad, 3), diag_pp (C, 6), diag_ll (Lpad, 3)).
+    With psum_axis the solve is replicated: every rank solves the same
+    summed system."""
     C = bw.n_cams
     Dm, Em, rm, hinv, dpp, dll, free = reduced_camera_system(
-        Hpp, gp, Hll, gl, W, lam, fixed_mask, bw)
+        Hpp, gp, Hll, gl, W, lam, fixed_mask, bw, psum_axis)
     dp = tridiag_solve(Dm, Em, rm).reshape(-1, 6)[:C]
     return dp, _backsub(dp, free, W, hinv, gl, bw), dpp, dll.T
 
 
 def solve_ba_banded(poses0, points0, bw: BandedWork, *, fixed_mask=None,
                     max_iters=30, lambda_init=1e-4, xtol=1e-12, loss=None,
-                    costs=None):
+                    costs=None, psum_axis=None, slot_points=False):
     """LM bundle adjustment on the slot-major banded layout, the same
     iteration trajectory as the JAX package's ``solve_ba_banded``, with an
     exact linear solve every step.
@@ -333,16 +347,30 @@ def solve_ba_banded(poses0, points0, bw: BandedWork, *, fixed_mask=None,
     sync a step; if `costs` is a list, the cost at the start and after each
     step is appended to it. On the card the block-tridiagonal kernel takes
     super-blocks of m = 6 max(K, 2) <= 512, every band K <= 32 that
-    `build_banded_work` accepts by default. Returns a BAState."""
+    `build_banded_work` accepts by default. Returns a BAState.
+
+    psum_axis: a ``torch.distributed`` process group whose ranks each run
+    this solve on their own slice of the chunks (``parallel/banded_dist``:
+    `bw` is the rank's slice); the camera-side sums and the LM's scalars are
+    summed over the ranks, the super-block solve is replicated, and the
+    landmarks stay the rank's own. None: one process, no collective.
+    slot_points=True returns the points in the slice's slot order
+    (Lpad, 3), not scattered to the landmark order (the distributed wrapper
+    gathers them once)."""
     robust.check(loss)
     set_full_precision()
     if fixed_mask is None:
         fixed_mask = first_camera_fixed(bw.n_cams, points0.device)
     final = lm_loop(
         poses0, points0[bw.gather_idx],
-        lambda poses, points: _banded_quantities(poses, points, bw, loss),
-        lambda blocks, lam: _solve_banded(*blocks, lam, fixed_mask, bw),
-        max_iters=max_iters, lambda_init=lambda_init, xtol=xtol, costs=costs)
+        lambda poses, points: _banded_quantities(poses, points, bw, loss,
+                                                 psum_axis),
+        lambda blocks, lam: _solve_banded(*blocks, lam, fixed_mask, bw,
+                                          psum_axis),
+        max_iters=max_iters, lambda_init=lambda_init, xtol=xtol, costs=costs,
+        psum_axis=psum_axis)
+    if slot_points:
+        return final
     return final._replace(points=scatter_slots(points0, final.points,
                                                bw.scatter_idx))
 

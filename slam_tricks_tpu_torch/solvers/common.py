@@ -1,7 +1,7 @@
 """Shared solver plumbing: full-precision products, fixed-order sums,
-the associative scan, and the generic solvers' tangent-space linearization
-and damped normal-equation solve (port of
-``slam_tricks_tpu/solvers/common.py``).
+the sum over a process group's ranks (``psum``), the associative scan, and
+the generic solvers' tangent-space linearization and damped normal-equation
+solve (port of ``slam_tricks_tpu/solvers/common.py``).
 
 Solvers linearize ``residual_fn`` through the manifold retraction at
 delta = 0: r(delta) = residual_fn(retract(x, delta), *args),
@@ -11,6 +11,7 @@ J = dr/ddelta at 0, so Jacobians come out in the tangent space.
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from slam_tricks_tpu_torch.ops.smallchol import cho_solve_small
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
@@ -64,6 +65,24 @@ def table_sum(src, table):
     same bits on every call, where ``index_add_`` sums by float atomics."""
     padded = torch.cat([src, src.new_zeros((src.shape[0], 1))], dim=1)
     return padded[:, table].sum(dim=-1).T
+
+
+def psum(tensors, group):
+    """The sums over the ranks of a ``torch.distributed`` process group of
+    a tuple of float tensors of one dtype: the JAX package's
+    ``jax.lax.psum(tensors, axis)``. The tensors are packed into one flat
+    buffer, reduced by one ``all_reduce`` (the only collective the port
+    uses: gloo, which runs ranks that share one card, reduces CUDA tensors
+    with it) and split back into tensors of their shapes. group None is a
+    single process: the tensors come back as they are, and no collective
+    is called."""
+    if group is None:
+        return tuple(tensors)
+    buf = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    sizes = [t.numel() for t in tensors]
+    return tuple(part.view(t.shape)
+                 for part, t in zip(torch.split(buf, sizes), tensors))
 
 
 def associative_scan(comb, xs):

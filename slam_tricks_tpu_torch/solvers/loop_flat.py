@@ -45,7 +45,7 @@ from slam_tricks_tpu_torch.solvers.banded_flat import (
     _cam_rhs, _group_superblocks, _mat3vec, _takahashi_inverse_blocks,
     block_tridiag_factor, build_banded_work, scatter_slots,
     tridiag_backward, tridiag_forward)
-from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed,
+from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed, psum,
                                                   set_full_precision)
 from slam_tricks_tpu_torch.solvers.schur import lm_loop
 from slam_tricks_tpu_torch.solvers.schur_flat_sm import (_chol3_flat,
@@ -214,17 +214,23 @@ def _capacitance_inverse(Ut):
 
 
 def _solve_loop(Hpp, gp, Hll_sr, gl_sr, W_sr, Hll_lc, gl_lc, W_lc, lam,
-                fixed_mask, lw: LoopWork):
+                fixed_mask, lw: LoopWork, psum_axis=None):
     """The exact damped, gauge-fixed solve of the whole reduced camera
     system: the stored factor of S_sb, one forward substitution of [b | U],
     the Woodbury capacitance, one backward substitution; then both
     landmark back-substitutions. Returns (dp (C, 6), dl_sr (Lpad, 3),
-    dl_lc (Mpad, 3), diag_pp (C, 6), diag_sr (Lpad, 3), diag_lc (Mpad, 3))."""
+    dl_lc (Mpad, 3), diag_pp (C, 6), diag_sr (Lpad, 3), diag_lc (Mpad, 3)).
+
+    psum_axis: a process group whose ranks each hold a slice of the
+    single-run chunks (``parallel/loop_dist``): the band downdates and the
+    single-run part of the rhs are summed over the ranks; the loop-closure
+    part, which every rank holds whole, is added after the sums, and the
+    factor, the capacitance and the substitutions are replicated."""
     bw = lw.banded
     C = bw.n_cams
     Klc, Mpad = lw.lc_w.shape
     bands, hinv_sr, dpp, dll_sr, free = _assemble_bands(
-        Hpp, Hll_sr, W_sr, lam, fixed_mask, bw)
+        Hpp, Hll_sr, W_sr, lam, fixed_mask, bw, psum_axis)
 
     Hd_lc, dll_lc = damp_hll(Hll_lc, lam)
     hinv_lc = torch.stack(_inv3x3_flat(Hd_lc))
@@ -237,7 +243,8 @@ def _solve_loop(Hpp, gp, Hll_sr, gl_sr, W_sr, Hll_lc, gl_lc, W_lc, lam,
     u_lc = _mat3vec(hinv_lc, gl_lc)
     cols = W3[:, 0] * u_lc[0] + W3[:, 1] * u_lc[1] + W3[:, 2] * u_lc[2]
     yA = torch.einsum("kma,ikm->ai", _onehot_slots(lw, gp.dtype), cols)
-    y = _cam_rhs(W_sr, hinv_sr, gl_sr, bw) + lw.onehot_A.T @ yA
+    y = (psum((_cam_rhs(W_sr, hinv_sr, gl_sr, bw),), psum_axis)[0]
+         + lw.onehot_A.T @ yA)
     b = -(gp - y) * free[:, None]
 
     Dm, Em, Kb = _group_superblocks(bands, C)
@@ -262,13 +269,22 @@ def _solve_loop(Hpp, gp, Hll_sr, gl_sr, W_sr, Hll_lc, gl_lc, W_lc, lam,
 
 def solve_ba_loop(poses0, points0, lw: LoopWork, *, fixed_mask=None,
                   max_iters=30, lambda_init=1e-4, xtol=1e-12, loss=None,
-                  costs=None):
+                  costs=None, psum_axis=None, raw_points=False):
     """LM bundle adjustment with loop closures, an exact linear solve every
     step; the same iteration trajectory as the JAX package's
     ``solve_ba_loop``. points0 (L, 3) in the original landmark order, as
     are the returned state's points; fixed_mask (C,) bool (default: camera
     0); lambda_init, xtol, loss and costs as in
-    ``banded_flat.solve_ba_banded``. Returns a BAState."""
+    ``banded_flat.solve_ba_banded``. Returns a BAState.
+
+    psum_axis: a ``torch.distributed`` process group whose ranks each run
+    this solve with their own slice of the single-run chunks in
+    `lw.banded` and the whole loop-closure grid (``parallel/loop_dist``):
+    the single-run camera sums and scalars are summed over the ranks, the
+    loop-closure terms, alike on every rank, are added after the sums.
+    None: one process, no collective. raw_points=True returns the points
+    as the pair (single-run points in the slice's slot order (Lpad, 3),
+    loop-closure points (Mpad, 3)), not scattered to the landmark order."""
     robust.check(loss)
     set_full_precision()
     bw = lw.banded
@@ -278,7 +294,7 @@ def solve_ba_loop(poses0, points0, lw: LoopWork, *, fixed_mask=None,
 
     def quantities(poses, points):
         (Hpp, gp, Hll_sr, gl_sr, W_sr), cost = _banded_quantities(
-            poses, points[:n_sr], bw, loss)
+            poses, points[:n_sr], bw, loss, psum_axis)
         cam_lc, Hll_lc, gl_lc, W_lc = _lc_quantities(poses, points[n_sr:],
                                                      lw, loss)
         blocks = (Hpp + cam_lc[:, :21], gp + cam_lc[:, 21:27], Hll_sr,
@@ -289,12 +305,16 @@ def solve_ba_loop(poses0, points0, lw: LoopWork, *, fixed_mask=None,
         Hpp, gp, Hll_sr, gl, W_sr, Hll_lc, W_lc = blocks
         dp, dl_sr, dl_lc, dpp, d_sr, d_lc = _solve_loop(
             Hpp, gp, Hll_sr, gl[:, :n_sr], W_sr, Hll_lc, gl[:, n_sr:], W_lc,
-            lam, fixed_mask, lw)
+            lam, fixed_mask, lw, psum_axis)
         return dp, torch.cat([dl_sr, dl_lc]), dpp, torch.cat([d_sr, d_lc])
 
     points_s0 = torch.cat([points0[bw.gather_idx], points0[lw.lc_gather]])
     final = lm_loop(poses0, points_s0, quantities, solve, max_iters=max_iters,
-                    lambda_init=lambda_init, xtol=xtol, costs=costs)
+                    lambda_init=lambda_init, xtol=xtol, costs=costs,
+                    psum_axis=psum_axis, n_local=n_sr)
+    if raw_points:
+        return final._replace(points=(final.points[:n_sr],
+                                      final.points[n_sr:]))
     points = scatter_slots(points0, final.points[:n_sr], bw.scatter_idx)
     points = scatter_slots(points, final.points[n_sr:], lw.lc_lm)
     return final._replace(points=points)

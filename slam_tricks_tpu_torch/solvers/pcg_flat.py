@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from slam_tricks_tpu_torch.solvers.common import psum
 from slam_tricks_tpu_torch.solvers.pcg import make_tridiag_precond, pcg
 from slam_tricks_tpu_torch.solvers.schur import build_track_table
 from slam_tricks_tpu_torch.solvers.schur_flat import FlatWork, obs_slots
@@ -151,12 +152,20 @@ def _pair_product(Ya, Wb):
 
 
 def solve_rcs_pcg_flat(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: FlatWork,
-                       pcgw: PCGWork, *, cg_iters=100, cg_tol=1e-6):
+                       pcgw: PCGWork, *, cg_iters=100, cg_tol=1e-6,
+                       psum_axis=None):
     """Gather-only PCG solve of the damped reduced camera system and the
     landmark back-substitution, from the blocks of
     ``schur_flat._iteration_quantities`` (Hpp (C, 21), gp (C, 6), Hll
     (6, L), gl (3, L), W (18, K, L)). Returns (dp (C, 6), dl (L, 3),
-    diag_pp (C, 6), diag_ll (L, 3))."""
+    diag_pp (C, 6), diag_ll (L, 3)).
+
+    psum_axis: a process group whose ranks each hold their own landmarks
+    (``parallel/pcg_dist``), Hpp and gp already summed over the ranks: every
+    camera-side sum (the rhs, the preconditioner's blocks and each CG
+    product's) is the rank's part and is summed over the ranks, (C, 6) a CG
+    iteration, so that the CG loop runs alike on every rank; None: one
+    process."""
     dtype, device = gp.dtype, gp.device
     K, L = work.slot.mask.shape
     dpp = torch.clamp_min(Hpp[:, _DIAG6], 1e-12)                  # (C, 6)
@@ -196,21 +205,25 @@ def solve_rcs_pcg_flat(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: FlatWork,
                 b * v[0] + d * v[1] + e * v[2],
                 c * v[0] + e * v[1] + f * v[2]]
 
-    b = -(gp - cam_reduce(mat3vec(hinv, [gl[0], gl[1], gl[2]]))) * freec
+    def reduce(v):
+        return psum((v,), psum_axis)[0]
+
+    b = -(gp - reduce(cam_reduce(mat3vec(hinv, [gl[0], gl[1], gl[2]])))
+          ) * freec
 
     def matvec(x):
         xf = x * freec
-        y = cam_reduce(mat3vec(hinv, lm_reduce(xf)))
+        y = reduce(cam_reduce(mat3vec(hinv, lm_reduce(xf))))
         Sx = torch.einsum("cij,cj->ci", Hpp_d, xf) - y
         return Sx * freec + x * fixedc
 
     # the exact block-tridiagonal preconditioner
     Y_c = _block_mul_sym3(W_c, [c[lmc] for c in hinv])            # (18,C,Kc)
-    D = Hpp_d - _pair_product(Y_c, W_c)
+    D = Hpp_d - reduce(_pair_product(Y_c, W_c))
     adj_lm = pcgw.adj_a % L
     Ya = (_block_mul_sym3(Wflat[:, pcgw.adj_a], [c[adj_lm] for c in hinv])
           * pcgw.adj_mask)
-    E = -_pair_product(Ya, Wflat[:, pcgw.adj_b])                  # (C-1,6,6)
+    E = -reduce(_pair_product(Ya, Wflat[:, pcgw.adj_b]))          # (C-1,6,6)
 
     eye6 = torch.eye(6, dtype=dtype, device=device)
     D = D * free[:, None, None] + eye6[None] * (1.0 - free)[:, None, None]

@@ -36,7 +36,7 @@ from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
 from slam_tricks_tpu_torch.residuals import robust
 from slam_tricks_tpu_torch.residuals.reprojection import \
     reproject_normalized_jacobians
-from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed,
+from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed, psum,
                                                   set_full_precision,
                                                   sum_table, table_sum)
 
@@ -110,7 +110,7 @@ def _retract_state(poses, points, dp, dl):
 
 def lm_loop(poses0, points0, quantities, solve, *, max_iters,
             lambda_init=1e-4, xtol=1e-12, gtol=0.0, costs=None,
-            callback=None, grads=None):
+            callback=None, grads=None, psum_axis=None, n_local=None):
     """The Levenberg-Marquardt loop of the JAX package's Schur solvers, run
     on the host over device tensors with one sync (the stop flag) a step.
 
@@ -126,7 +126,21 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
     is a list, the cost at the start and after each step is appended to it
     (device scalars); callback(it, cost, lam) is called after each step
     with the 0-based step count and the state it leaves. Returns a
-    BAState."""
+    BAState.
+
+    psum_axis: a ``torch.distributed`` process group whose ranks each run
+    this loop on their own landmarks (the distributed solvers of
+    ``parallel/``), or None (one process, no collective). quantities must
+    then return the camera blocks and the cost summed over the ranks, and
+    solve a dp that every rank computes alike; the loop sums the first
+    n_local landmark rows' step and model-decrease terms over the ranks
+    (all rows when None; the rows after them are replicated on every rank,
+    as the loop-closure landmarks of ``parallel/loop_dist``) and a step
+    that is not finite on any rank, so that every rank takes the same
+    decisions from the same numbers and leaves the loop at the same step.
+    gtol > 0 is refused with a group."""
+    if psum_axis is not None and gtol > 0:
+        raise ValueError("lm_loop: gtol > 0 is not supported with psum_axis")
     dtype, device = points0.dtype, points0.device
     poses, points = poses0, points0
     blocks, cost = quantities(poses, points)
@@ -139,15 +153,23 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
         gp, gl = (blocks[1], blocks[3].T) if grads is None else grads(blocks)
         dp, dl, diag_pp, diag_ll = solve(blocks, lam)
         bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
+        if psum_axis is not None:
+            # every rank must agree before the replicated state is touched
+            bad = psum((bad.to(dtype),), psum_axis)[0] > 0
         dp_s = torch.where(bad, torch.zeros_like(dp), dp)
         dl_s = torch.where(bad, torch.zeros_like(dl), dl)
         poses_try, points_try = _retract_state(poses, points, dp_s, dl_s)
         blocks_try, cost_try = quantities(poses_try, points_try)
 
-        pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl))
+        if psum_axis is None:
+            pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl))
+            step_l = torch.sum(dl_s * dl_s)
+        else:
+            pred_l, step_l = _landmark_terms(dl_s, lam * diag_ll * dl_s - gl,
+                                             psum_axis, n_local)
         pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp)) + pred_l)
         accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred, bad)
-        step_sq = torch.sum(dp_s * dp_s) + torch.sum(dl_s * dl_s)
+        step_sq = torch.sum(dp_s * dp_s) + step_l
         stop = accept & (step_sq < xtol * xtol)
         if gtol > 0:
             stop = stop | (torch.maximum(gp.abs().max(), gl.abs().max())
@@ -166,6 +188,17 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
         done = bool(stop)                               # one sync a step
     return BAState(poses=poses, points=points, cost=cost, lam=lam, nu=nu,
                    it=it, done=done)
+
+
+def _landmark_terms(dl, a, group, n_local):
+    """(sum of dl a, sum of dl²) over the landmark rows: the first n_local
+    rows (all when None) summed over the ranks of `group`, the rest, which
+    every rank holds alike, added after the sum."""
+    n = dl.shape[0] if n_local is None else n_local
+    pred_l, step_l = psum(((dl[:n] * a[:n]).sum(),
+                           (dl[:n] * dl[:n]).sum()), group)
+    return (pred_l + (dl[n:] * a[n:]).sum(),
+            step_l + (dl[n:] * dl[n:]).sum())
 
 
 # ---- the observation-list solver (solve_ba) ----

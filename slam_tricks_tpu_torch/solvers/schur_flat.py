@@ -20,8 +20,10 @@ every track gather is a reshape, so one iteration is
 
 The JAX package's ``pallas_meta``, ``pallas_interpret`` and
 ``chol_backend`` only pick its implementation of the same math; the port
-has no counterpart (on the card it always runs its kernels). ``psum_axis``
-(the distributed solve) is not ported yet.
+has no counterpart (on the card it always runs its kernels). With
+``psum_axis`` (a ``torch.distributed`` process group) and ``linear="pcg"``
+it is the rank's part of the distributed large-C solve of
+``parallel/pcg_dist``.
 """
 
 from typing import NamedTuple
@@ -167,14 +169,18 @@ def solve_ba_flat(poses0, points0, obs, work: FlatWork, *, fixed_mask=None,
     (``ops.spd_solve``); "pcg" runs the block-tridiagonal PCG of
     ``pcg_flat`` with pcg_work=pcg_flat.build_pcg_work(obs, C), cg_iters
     and cg_tol. loss: a ``residuals.robust.Loss`` or None. `costs` as in
-    ``schur.lm_loop``. psum_axis (the distributed solve) raises
-    NotImplementedError. Returns a BAState."""
-    if psum_axis is not None:
-        raise NotImplementedError(
-            "psum_axis: the distributed flat solve belongs to the port's "
-            "slice G (parallel/*), not ported yet")
+    ``schur.lm_loop``. Returns a BAState.
+
+    psum_axis: a ``torch.distributed`` process group whose ranks each run
+    this solve on their own landmarks (``parallel/pcg_dist``: `obs`,
+    `work`, `pcg_work` and `points0` are the rank's), poses replicated; the
+    camera-side sums and the LM's scalars are summed over the ranks. It
+    requires linear="pcg" (the dense solve would sum a (3L, 6C) matrix over
+    the ranks) and raises ValueError otherwise. None: one process."""
     if linear not in ("dense", "pcg"):
         raise ValueError(f"unknown linear {linear!r}")
+    if psum_axis is not None and linear != "pcg":
+        raise ValueError("psum_axis requires linear='pcg'")
     if linear == "pcg" and pcg_work is None:
         raise ValueError("linear='pcg' requires pcg_work="
                          "pcg_flat.build_pcg_work(obs, C)")
@@ -193,11 +199,12 @@ def solve_ba_flat(poses0, points0, obs, work: FlatWork, *, fixed_mask=None,
         if linear == "pcg":
             return solve_rcs_pcg_flat(*blocks, lam, fixed_mask, work,
                                       pcg_work, cg_iters=cg_iters,
-                                      cg_tol=cg_tol)
+                                      cg_tol=cg_tol, psum_axis=psum_axis)
         return _solve_flat(*blocks, lam, fixed_mask, work)
 
     return lm_loop(
         poses0, points0,
-        lambda poses, points: _quantities_sm(poses, points, work.slot, loss),
+        lambda poses, points: _quantities_sm(poses, points, work.slot, loss,
+                                             psum_axis),
         solve, max_iters=max_iters, lambda_init=lambda_init, xtol=xtol,
-        costs=costs)
+        costs=costs, psum_axis=psum_axis)

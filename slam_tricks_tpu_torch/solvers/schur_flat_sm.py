@@ -33,7 +33,7 @@ from slam_tricks_tpu_torch.ops.ba_assemble import (_IJ3, _IJ6, CameraIndex,
                                                    linearize_assemble)
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
 from slam_tricks_tpu_torch.residuals import robust
-from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed,
+from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed, psum,
                                                   set_full_precision,
                                                   sum_table, table_sum)
 from slam_tricks_tpu_torch.solvers.schur import build_track_table, lm_loop
@@ -144,13 +144,17 @@ def slot_work_from_table(obs, table, n_cams, dtype=torch.float32,
         cam_table=cam_table, n_cams=int(n_cams))
 
 
-def _quantities_sm(poses, points, work: SlotWork, loss=None):
+def _quantities_sm(poses, points, work: SlotWork, loss=None, psum_axis=None):
     """Linearize + assemble: (Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L),
-    W (18, K, L)), cost."""
+    W (18, K, L)), cost. psum_axis: a process group whose ranks each hold
+    their own landmarks' slots (``parallel/pcg_dist``): the camera side
+    (Hpp, gp, cost) is summed over the ranks, the landmark side stays the
+    rank's own; None: one process."""
     C = work.n_cams
     Hpp, gp, Hll, gl, W, cost = linearize_assemble(
         poses.R.reshape(C, 9), poses.t, points, work.uv0, work.uv1, work.w,
         work.cam_of_slot, work.cam_index, loss)
+    Hpp, gp, cost = psum((Hpp, gp, cost), psum_axis)
     return (Hpp, gp, Hll, gl, W), cost
 
 

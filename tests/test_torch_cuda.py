@@ -32,7 +32,9 @@ the CPU tests' sizes; the host utilities on the card (Timer.lap waits for
 queued products: within 10% + 5 ms of CUDA events around them; a
 checkpoint of CUDA tensors loads onto the card and onto the CPU, the same
 bits) and an example run on the card by default, its numbers within 5e-3
-relative of its --cpu run."""
+relative of its --cpu run; the distributed banded and sharded solvers on
+two gloo ranks that share the card, the same bits on both ranks and
+within 1e-8 of the same solve on the CPU."""
 
 import numpy as np
 import pytest
@@ -1077,3 +1079,94 @@ def test_example_runs_on_cuda_by_default():
     assert card["n_cheiral"] == cpu["n_cheiral"] == 100
     for k in ("rot_err", "t_err", "final_cost"):
         assert abs(card[k] - cpu[k]) <= 5e-3 * abs(cpu[k])
+
+
+# ---- the distributed solvers: two gloo ranks that share the card ----
+
+def _dist_case(name):
+    """(make, kwargs, args on the CPU) of a small f64 problem: banded_dist
+    on the 16-camera trajectory of tests/test_multihost.py, sharded_ba on
+    the noisy cube room of tests/test_landmark_local.py (4 iterations, off
+    the f64 floor)."""
+    from slam_tricks_tpu_torch.parallel import banded_dist, partition, sharded_ba
+
+    f64 = torch.float64
+    if name == "banded_dist":
+        sc = make_trajectory_scene(n_cams=16, n_points=240, track_len=4,
+                                   seed=73, dtype=f64, device="cpu")
+        poses0, points0, fixed = perturb_scene(sc, seed=74)
+        work = banded_dist.build_dist_banded_work(sc.obs, 16, 240, 2,
+                                                  dtype=f64)
+        return (banded_dist.make_ba_solver_banded_dist, dict(max_iters=8),
+                (poses0, points0, work, fixed))
+    sc = make_scene(n_per_wall=10, n_cams=6, seed=51, pix_noise=1e-3,
+                    dtype=f64, device="cpu")
+    poses0, points0, fixed = perturb_scene(sc, seed=52)
+    obs = partition.partition_obs_by_landmark(sc.obs, 2)
+    pairs = partition.build_local_pairs(obs, 2, dtype=f64)
+    return (sharded_ba.make_ba_solver, dict(max_iters=4),
+            (poses0, points0, obs, pairs, fixed))
+
+
+def _dist_rank(rank, world, tmpdir, name):
+    """A rank (a spawned process): the case's solve on the CPU and on the
+    card over one gloo group; (it, R, t, points, cost) of each, by device,
+    to tmpdir/rank<rank>.pt, a traceback to rank<rank>.err."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from slam_tricks_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(1)
+    multihost.initialize_multihost(f"file://{tmpdir}/store", world, rank,
+                                   timeout_s=120.0)
+    try:
+        make, kw, args = _dist_case(name)
+        out = {}
+        for device in ("cpu", "cuda"):
+            state = make(None, **kw)(*multihost.make_global_array(
+                args, None, device))
+            out[device] = (state.it, state.poses.R.cpu(), state.poses.t.cpu(),
+                           state.points.cpu(), state.cost.cpu())
+        torch.save(out, f"{tmpdir}/rank{rank}.pt")
+    except BaseException:
+        with open(f"{tmpdir}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["banded_dist", "sharded_ba"])
+def test_distributed_solver_on_two_ranks_on_cuda_matches_cpu(name, tmp_path):
+    """Two ranks on cuda:0 (gloo: NCCL refuses two ranks on one device),
+    the kernels launched inside them: the ranks return the same bits, and
+    the card's solve is the CPU's to 1e-8 in the poses and the points."""
+    import torch.multiprocessing as mp
+
+    require_cuda()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(r, 2, str(tmp_path), name))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p.is_alive() for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [e.read_text() for e in sorted(tmp_path.glob("rank*.err"))]
+    assert not any(alive) and not errors, (alive, errors)
+    assert [p.exitcode for p in procs] == [0, 0]
+    out = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    for a, b in zip(out[0]["cuda"], out[1]["cuda"]):
+        assert (a == b if isinstance(a, int) else torch.equal(a, b))
+    card, cpu = out[0]["cuda"], out[0]["cpu"]
+    assert card[0] == cpu[0]
+    for a, b in zip(card[1:4], cpu[1:4]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(float(card[4]), float(cpu[4]), rtol=1e-7)

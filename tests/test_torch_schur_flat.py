@@ -138,8 +138,9 @@ def test_grid_layout_and_argument_errors(prob):
     (_, *_), (obs, p0, x0, fx, work), (C, L) = prob
     with pytest.raises(ValueError, match="grid_order_obs"):
         schur_flat.build_flat_work(obs, C, L, dtype=f64, grid=True)
-    with pytest.raises(NotImplementedError, match="slice G"):
-        schur_flat.solve_ba_flat(p0, x0, obs, work, linear="pcg",
+    # the JAX package's rule: the distributed solve is PCG only
+    with pytest.raises(ValueError, match="psum_axis requires"):
+        schur_flat.solve_ba_flat(p0, x0, obs, work, linear="dense",
                                  psum_axis="d")
     with pytest.raises(ValueError, match="pcg_work"):
         schur_flat.solve_ba_flat(p0, x0, obs, work, linear="pcg")

@@ -6,6 +6,7 @@ import io
 import logging
 import re
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -125,3 +126,107 @@ def printed_numbers(text):
     """Every number in `text`, in order, as floats."""
     return [float(v) for v in re.findall(
         r"[-+]?\d+\.?\d*(?:[eE][-+]?\d+)?", text)]
+
+
+# ---- ranks of a gloo process group on the CPU (the distributed solvers) ----
+
+def spawn_ranks(fn, world_size, workdir, *args, timeout=300.0):
+    """fn(rank, world_size, *args) in world_size spawned processes joined
+    by a gloo process group through a ``file://`` store in `workdir` (no
+    port: parallel test workers never collide), one intra-op thread each.
+    Returns each rank's result, in rank order. Raises if a rank fails, or
+    hangs past `timeout` seconds (its processes are killed then)."""
+    import torch.multiprocessing as mp
+
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(fn, rank, world_size, str(workdir), args))
+             for rank in range(world_size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [(workdir / f"rank{rank}.err").read_text()
+              for rank in range(world_size)
+              if (workdir / f"rank{rank}.err").exists()]
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"ranks hung: {hung}; exit codes "
+                             f"{[p.exitcode for p in procs]}\n"
+                             + "\n".join(errors))
+    return [torch.load(workdir / f"rank{rank}.pt", weights_only=False)
+            for rank in range(world_size)]
+
+
+def _rank_entry(fn, rank, world_size, workdir, args):
+    import traceback
+
+    import torch.distributed as dist
+
+    from slam_tricks_tpu_torch.parallel.multihost import initialize_multihost
+
+    torch.set_num_threads(TORCH_THREADS)
+    initialize_multihost(f"file://{workdir}/store", world_size, rank,
+                         timeout_s=120.0)
+    try:
+        out = fn(rank, world_size, *args)
+        torch.save(out, f"{workdir}/rank{rank}.pt")
+    except BaseException:
+        Path(f"{workdir}/rank{rank}.err").write_text(
+            f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def count_all_reduce():
+    """Records each ``torch.distributed.all_reduce`` call's operand inside
+    the block as (numel, bytes). Yields the list."""
+    import torch.distributed as dist
+
+    calls = []
+    inner = dist.all_reduce
+
+    def wrapped(tensor, *a, **kw):
+        calls.append((tensor.numel(), tensor.numel() * tensor.element_size()))
+        return inner(tensor, *a, **kw)
+
+    dist.all_reduce = wrapped
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = inner
+
+
+def solve_cases(rank, world_size, cases):
+    """The distributed solvers' rank job: for each (key, make, kwargs,
+    args, flags) of `cases`, solve = make(group, **kwargs) and
+    solve(*args, costs=...), group the world, or with flags "self" this
+    rank alone (a group of size 1); with flags "count" the all_reduce
+    operands are recorded. Returns {key: (BAState on the CPU, costs,
+    all_reduce records)}."""
+    import torch.distributed as dist
+
+    selves = [dist.new_group([r]) for r in range(world_size)]
+    out = {}
+    for key, make, kwargs, args, flags in cases:
+        group = selves[rank] if "self" in flags else dist.group.WORLD
+        if "self" in flags and rank != 0:
+            continue
+        costs = []
+        with count_all_reduce() as calls:
+            state = make(group, **kwargs)(*args, costs=costs)
+        out[key] = (state._replace(
+            poses=type(state.poses)(state.poses.R.cpu(), state.poses.t.cpu()),
+            points=state.points.cpu(), cost=state.cost.cpu(),
+            lam=state.lam.cpu(), nu=state.nu.cpu()),
+            [float(c) for c in costs], calls if "count" in flags else None)
+    return out
