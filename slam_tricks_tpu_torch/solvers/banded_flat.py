@@ -56,6 +56,7 @@ from slam_tricks_tpu_torch.solvers.schur import lm_loop
 from slam_tricks_tpu_torch.solvers.schur_flat_sm import (_DIAG6, _inv3x3_flat,
                                                          _sym6_expand,
                                                          damp_hll)
+from slam_tricks_tpu_torch.utils.timer import annotate
 
 _SYM33 = [0, 1, 2, 1, 3, 4, 2, 4, 5]     # (3, 3) entries of 6 upper-triangle
 
@@ -88,12 +89,31 @@ def build_banded_work(obs, n_cams, n_points, dtype=torch.float32, chunk=32,
     package's. Raises ValueError for a duplicate (landmark, camera)
     observation or a band K > max_band."""
     device = obs.uv.device
+    C, L = int(n_cams), int(n_points)
+    with annotate("slam:layout.banded_work"):
+        with annotate("slam:layout.track_table"):
+            host = _banded_arrays(obs, C, L, dtype, chunk, max_band)
+        with annotate("slam:layout.upload"):
+            uv0, uv1, w_t, cam_t, c0_t, scatter_idx, gather_idx = (
+                torch.as_tensor(np.ascontiguousarray(a), device=device)
+                for a in host)
+        with annotate("slam:layout.tables"):
+            cam_index = layout_index(w_t, cam_t, C)
+            cam_table = chunk_table(c0_t, w_t.shape[0], C)
+    return BandedWork(
+        uv0=uv0, uv1=uv1, w=w_t, cam_of_slot=cam_t, cam_index=cam_index,
+        cam_table=cam_table, c0=c0_t, scatter_idx=scatter_idx,
+        gather_idx=gather_idx, n_cams=C, n_points=L)
+
+
+def _banded_arrays(obs, C, L, dtype, chunk, max_band):
+    """`build_banded_work`'s layout in numpy: (uv0, uv1, w, cam_of_slot,
+    each chunk's first camera, scatter_idx, gather_idx)."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     cam = obs.cam_idx.cpu().numpy().astype(np.int64)
     lm = obs.lm_idx.cpu().numpy().astype(np.int64)
     uv = obs.uv.cpu().numpy()
     w = obs.weight.cpu().numpy()
-    C, L = int(n_cams), int(n_points)
     valid = np.flatnonzero(w > 0)
     cam_v, lm_v = cam[valid], lm[valid]
 
@@ -139,19 +159,8 @@ def build_banded_work(obs, n_cams, n_points, dtype=torch.float32, chunk=32,
     uvg[k_of, 1, col] = uv[valid, 1].astype(np_dtype)
     wg[k_of, col] = w[valid].astype(np_dtype)
     cam_of_slot = (slot_c0[None, :] + np.arange(K)[:, None]) % C
-
-    def tensor(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-    w_t, cam_t = tensor(wg), tensor(cam_of_slot.astype(np.int32))
-    c0_t = tensor(chunk_c0)
-    return BandedWork(
-        uv0=tensor(uvg[:, 0]), uv1=tensor(uvg[:, 1]), w=w_t,
-        cam_of_slot=cam_t, cam_index=layout_index(w_t, cam_t, C),
-        cam_table=chunk_table(c0_t, K, C), c0=c0_t,
-        scatter_idx=tensor(scatter_idx),
-        gather_idx=tensor(np.minimum(scatter_idx, L - 1)),
-        n_cams=C, n_points=L)
+    return (uvg[:, 0], uvg[:, 1], wg, cam_of_slot.astype(np.int32), chunk_c0,
+            scatter_idx, np.minimum(scatter_idx, L - 1))
 
 
 def chunk_table(c0, K, C):
@@ -326,10 +335,14 @@ def _solve_banded(Hpp, gp, Hll, gl, W, lam, fixed_mask, bw: BandedWork,
     With psum_axis the solve is replicated: every rank solves the same
     summed system."""
     C = bw.n_cams
-    Dm, Em, rm, hinv, dpp, dll, free = reduced_camera_system(
-        Hpp, gp, Hll, gl, W, lam, fixed_mask, bw, psum_axis)
-    dp = tridiag_solve(Dm, Em, rm).reshape(-1, 6)[:C]
-    return dp, _backsub(dp, free, W, hinv, gl, bw), dpp, dll.T
+    with annotate("slam:rcs"):
+        Dm, Em, rm, hinv, dpp, dll, free = reduced_camera_system(
+            Hpp, gp, Hll, gl, W, lam, fixed_mask, bw, psum_axis)
+    with annotate("slam:linear_solve"):
+        dp = tridiag_solve(Dm, Em, rm).reshape(-1, 6)[:C]
+    with annotate("slam:backsub"):
+        dl = _backsub(dp, free, W, hinv, gl, bw)
+    return dp, dl, dpp, dll.T
 
 
 def solve_ba_banded(poses0, points0, bw: BandedWork, *, fixed_mask=None,

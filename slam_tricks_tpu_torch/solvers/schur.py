@@ -39,6 +39,7 @@ from slam_tricks_tpu_torch.residuals.reprojection import \
 from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed, psum,
                                                   set_full_precision,
                                                   sum_table, table_sum)
+from slam_tricks_tpu_torch.utils.timer import annotate
 
 
 class BAState(NamedTuple):
@@ -138,54 +139,74 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
     as the loop-closure landmarks of ``parallel/loop_dist``) and a step
     that is not finite on any rank, so that every rank takes the same
     decisions from the same numbers and leaves the loop at the same step.
-    gtol > 0 is refused with a group."""
+    gtol > 0 is refused with a group.
+
+    Spans (``utils.timer.annotate``, recorded only while a profiler runs):
+    ``slam:lm.linearize`` around each quantities call, ``slam:lm.iter``
+    around an iteration, holding ``slam:lm.solve``, ``slam:lm.retract``
+    (the finiteness guard and the retract), the trial's
+    ``slam:lm.linearize``, ``slam:lm.accept`` (the model decrease, the
+    control law, the stop test and the state's selection) and
+    ``slam:sync.stop``, the host's wait for the stop flag."""
     if psum_axis is not None and gtol > 0:
         raise ValueError("lm_loop: gtol > 0 is not supported with psum_axis")
     dtype, device = points0.dtype, points0.device
     poses, points = poses0, points0
-    blocks, cost = quantities(poses, points)
+    with annotate("slam:lm.linearize"):
+        blocks, cost = quantities(poses, points)
     lam = torch.tensor(lambda_init, dtype=dtype, device=device)
     nu = torch.tensor(2.0, dtype=dtype, device=device)
     it, done = 0, False
     if costs is not None:
         costs.append(cost)
     while not done and it < max_iters:
-        gp, gl = (blocks[1], blocks[3].T) if grads is None else grads(blocks)
-        dp, dl, diag_pp, diag_ll = solve(blocks, lam)
-        bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
-        if psum_axis is not None:
-            # every rank must agree before the replicated state is touched
-            bad = psum((bad.to(dtype),), psum_axis)[0] > 0
-        dp_s = torch.where(bad, torch.zeros_like(dp), dp)
-        dl_s = torch.where(bad, torch.zeros_like(dl), dl)
-        poses_try, points_try = _retract_state(poses, points, dp_s, dl_s)
-        blocks_try, cost_try = quantities(poses_try, points_try)
+        with annotate("slam:lm.iter"):
+            gp, gl = ((blocks[1], blocks[3].T) if grads is None
+                      else grads(blocks))
+            with annotate("slam:lm.solve"):
+                dp, dl, diag_pp, diag_ll = solve(blocks, lam)
+            with annotate("slam:lm.retract"):
+                bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
+                if psum_axis is not None:
+                    # every rank must agree before the replicated state is
+                    # touched
+                    bad = psum((bad.to(dtype),), psum_axis)[0] > 0
+                dp_s = torch.where(bad, torch.zeros_like(dp), dp)
+                dl_s = torch.where(bad, torch.zeros_like(dl), dl)
+                poses_try, points_try = _retract_state(poses, points, dp_s,
+                                                       dl_s)
+            with annotate("slam:lm.linearize"):
+                blocks_try, cost_try = quantities(poses_try, points_try)
 
-        if psum_axis is None:
-            pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl))
-            step_l = torch.sum(dl_s * dl_s)
-        else:
-            pred_l, step_l = _landmark_terms(dl_s, lam * diag_ll * dl_s - gl,
-                                             psum_axis, n_local)
-        pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp)) + pred_l)
-        accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred, bad)
-        step_sq = torch.sum(dp_s * dp_s) + step_l
-        stop = accept & (step_sq < xtol * xtol)
-        if gtol > 0:
-            stop = stop | (torch.maximum(gp.abs().max(), gl.abs().max())
-                           < gtol)
-        poses = se3.SE3(torch.where(accept, poses_try.R, poses.R),
-                        torch.where(accept, poses_try.t, poses.t))
-        points = torch.where(accept, points_try, points)
-        cost = torch.where(accept, cost_try, cost)
-        blocks = tuple(torch.where(accept, a, b)
-                       for a, b in zip(blocks_try, blocks))
-        if callback is not None:
-            callback(it, cost, lam)
-        it += 1
-        if costs is not None:
-            costs.append(cost)
-        done = bool(stop)                               # one sync a step
+            with annotate("slam:lm.accept"):
+                if psum_axis is None:
+                    pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl))
+                    step_l = torch.sum(dl_s * dl_s)
+                else:
+                    pred_l, step_l = _landmark_terms(
+                        dl_s, lam * diag_ll * dl_s - gl, psum_axis, n_local)
+                pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp))
+                              + pred_l)
+                accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred,
+                                            bad)
+                step_sq = torch.sum(dp_s * dp_s) + step_l
+                stop = accept & (step_sq < xtol * xtol)
+                if gtol > 0:
+                    stop = stop | (torch.maximum(gp.abs().max(),
+                                                 gl.abs().max()) < gtol)
+                poses = se3.SE3(torch.where(accept, poses_try.R, poses.R),
+                                torch.where(accept, poses_try.t, poses.t))
+                points = torch.where(accept, points_try, points)
+                cost = torch.where(accept, cost_try, cost)
+                blocks = tuple(torch.where(accept, a, b)
+                               for a, b in zip(blocks_try, blocks))
+            if callback is not None:
+                callback(it, cost, lam)
+            it += 1
+            if costs is not None:
+                costs.append(cost)
+            with annotate("slam:sync.stop"):
+                done = bool(stop)                       # one sync a step
     return BAState(poses=poses, points=points, cost=cost, lam=lam, nu=nu,
                    it=it, done=done)
 

@@ -37,6 +37,7 @@ from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed, psum,
                                                   set_full_precision,
                                                   sum_table, table_sum)
 from slam_tricks_tpu_torch.solvers.schur import build_track_table, lm_loop
+from slam_tricks_tpu_torch.utils.timer import annotate
 
 _DIAG6 = [k for k, (i, j) in enumerate(_IJ6) if i == j]    # [0, 6, 11, 15, 18, 20]
 _DIAG3 = [k for k, (i, j) in enumerate(_IJ3) if i == j]    # [0, 3, 5]
@@ -102,11 +103,13 @@ def build_slot_work(obs, n_cams, n_points, dtype=torch.float32,
     package's use_onehot=False)."""
     del use_onehot
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    table = build_track_table(obs.cam_idx.cpu().numpy(),
-                              obs.lm_idx.cpu().numpy(),
-                              obs.weight.cpu().numpy().astype(np.float64),
-                              n_points=n_points, dtype=np_dtype)
-    return slot_work_from_table(obs, table, n_cams, dtype)
+    with annotate("slam:layout.slot_work"):
+        with annotate("slam:layout.track_table"):
+            table = build_track_table(
+                obs.cam_idx.cpu().numpy(), obs.lm_idx.cpu().numpy(),
+                obs.weight.cpu().numpy().astype(np.float64),
+                n_points=n_points, dtype=np_dtype)
+        return slot_work_from_table(obs, table, n_cams, dtype)
 
 
 def slot_work_from_table(obs, table, n_cams, dtype=torch.float32,
@@ -118,30 +121,32 @@ def slot_work_from_table(obs, table, n_cams, dtype=torch.float32,
     (``with_b_table``)."""
     device = obs.uv.device
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    cam_np = obs.cam_idx.cpu().numpy()
-    w_np = obs.weight.cpu().numpy().astype(np.float64)
-    uv_np = obs.uv.cpu().numpy()
-    idx = np.asarray(table.obs_idx)      # (L, K)
-    msk = np.asarray(table.mask) > 0
-    L, K = idx.shape
+    with annotate("slam:layout.track_table"):
+        cam_np = obs.cam_idx.cpu().numpy()
+        w_np = obs.weight.cpu().numpy().astype(np.float64)
+        uv_np = obs.uv.cpu().numpy()
+        idx = np.asarray(table.obs_idx)      # (L, K)
+        msk = np.asarray(table.mask) > 0
+        L, K = idx.shape
 
-    def slotm(a):
-        out = np.zeros((L, K) + a.shape[1:], a.dtype)
-        out[msk] = a[idx[msk]]
-        return torch.as_tensor(np.ascontiguousarray(np.moveaxis(out, 1, 0)),
-                               device=device)               # (K, L, ...)
+        def slotm(a):
+            out = np.zeros((L, K) + a.shape[1:], a.dtype)
+            out[msk] = a[idx[msk]]
+            return np.ascontiguousarray(np.moveaxis(out, 1, 0))  # (K, L, ...)
 
-    uv_sm = slotm(uv_np.astype(np_dtype))
-    w_sm = slotm(w_np.astype(np_dtype))
-    cam_sm = slotm(cam_np.astype(np.int32))
-    mask = torch.as_tensor(np.ascontiguousarray(msk.T.astype(np_dtype)),
-                           device=device)
-    b_table, cam_table = slot_tables(cam_sm, mask, n_cams, with_b_table)
+        host = (slotm(uv_np.astype(np_dtype)), slotm(w_np.astype(np_dtype)),
+                slotm(cam_np.astype(np.int32)),
+                np.ascontiguousarray(msk.T.astype(np_dtype)))
+    with annotate("slam:layout.upload"):
+        uv_sm, w_sm, cam_sm, mask = (torch.as_tensor(a, device=device)
+                                     for a in host)
+    with annotate("slam:layout.tables"):
+        b_table, cam_table = slot_tables(cam_sm, mask, n_cams, with_b_table)
+        cam_index = layout_index(w_sm, cam_sm, n_cams)
     return SlotWork(
         uv0=uv_sm[..., 0].contiguous(), uv1=uv_sm[..., 1].contiguous(),
-        w=w_sm, mask=mask, cam_of_slot=cam_sm,
-        cam_index=layout_index(w_sm, cam_sm, n_cams), b_table=b_table,
-        cam_table=cam_table, n_cams=int(n_cams))
+        w=w_sm, mask=mask, cam_of_slot=cam_sm, cam_index=cam_index,
+        b_table=b_table, cam_table=cam_table, n_cams=int(n_cams))
 
 
 def _quantities_sm(poses, points, work: SlotWork, loss=None, psum_axis=None):
@@ -281,10 +286,14 @@ def back_substitute(dp, W, Hll_inv, gl, work: SlotWork):
 def _solve_sm(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: SlotWork):
     """Damped Schur solve from slot-major blocks. Returns (dp (C, 6),
     dl (L, 3), diag_pp (C, 6), diag_ll (L, 3))."""
-    S, b, Hll_inv, dpp, dll = reduced_camera_system(Hpp, gp, Hll, gl, W, lam,
-                                                    fixed_mask, work)
-    dp = spd_solve(S, b).reshape(work.n_cams, 6)
-    return dp, back_substitute(dp, W, Hll_inv, gl, work), dpp, dll.T
+    with annotate("slam:rcs"):
+        S, b, Hll_inv, dpp, dll = reduced_camera_system(Hpp, gp, Hll, gl, W,
+                                                        lam, fixed_mask, work)
+    with annotate("slam:linear_solve"):
+        dp = spd_solve(S, b).reshape(work.n_cams, 6)
+    with annotate("slam:backsub"):
+        dl = back_substitute(dp, W, Hll_inv, gl, work)
+    return dp, dl, dpp, dll.T
 
 
 def solve_ba_flat_sm(poses0, points0, work: SlotWork, *, fixed_mask=None,

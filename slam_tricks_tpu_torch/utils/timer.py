@@ -5,20 +5,26 @@ st17-ceres/src/include/solver.hpp:253-288), port of
 ``timed`` block and ``time_fn`` first wait for the CUDA device of every
 tensor they are given (``torch.cuda.synchronize(device)``) and only then
 read the clock, so timings are real. Tensors on the CPU need no wait.
+
+``annotate`` is the package's one span: the solvers open it at their layer
+boundaries (``slam:*`` names, PERF.md §3), and it costs one check of the
+profiler's state where no profiler runs.
 """
 
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
 
-from slam_tricks_tpu_torch.solvers.common import leaves
+_NO_SPAN = nullcontext()
 
 
 def synchronize(tree):
     """Wait for the CUDA device of every tensor in the nest `tree` (tensors,
     NamedTuples, tuples, lists, dicts). Returns `tree`."""
+    # imported here: the solvers import this module for `annotate`
+    from slam_tricks_tpu_torch.solvers.common import leaves
     for device in {x.device for x in leaves(tree) if x.is_cuda}:
         torch.cuda.synchronize(device)
     return tree
@@ -90,7 +96,13 @@ def profile_trace(log_dir, *, host_profiler=False):
 
 
 def annotate(name):
-    """Named region for profiler timelines (TraceAnnotation role)."""
+    """Named region for profiler timelines (TraceAnnotation role): a
+    ``record_function`` range, a host event on the profiler's timeline
+    beside the device's kernels, while a profiler runs; a shared no-op
+    context otherwise, since entering and leaving a ``record_function``
+    costs ~8 us with no profiler to record it, and this ~1 us."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
