@@ -317,7 +317,7 @@ def captured_calls(targets, fn, per_shape=None, counts=None):
     seen.update({t: {} for t in targets})
 
     def wrap(key, f):
-        def call(*a):
+        def call(*a, **kw):
             shapes = _shape_key(a)
             n = seen[key].get(shapes, 0)
             seen[key][shapes] = n + 1
@@ -325,7 +325,7 @@ def captured_calls(targets, fn, per_shape=None, counts=None):
                 got[key].append(tuple(
                     x.clone() if i < 5 and isinstance(x, torch.Tensor) else x
                     for i, x in enumerate(a)))
-            return f(*a)
+            return f(*a, **kw)
         return call
 
     for mod, name in targets:

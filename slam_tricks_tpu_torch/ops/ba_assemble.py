@@ -220,9 +220,54 @@ def _check_index(index, w, cam_of_slot, n_cams):
                          "and this camera count, or they changed since")
 
 
-def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index, loss):
+class AssembleOut(NamedTuple):
+    """Outputs for ``linearize_assemble(..., out=)``, made by
+    ``assemble_out``: every call given them writes into the same memory, so
+    that a CUDA graph can read a call's results at fixed addresses."""
+    buf: torch.Tensor    # the blocks, then the kernel's scratch
+    cost: torch.Tensor   # ()
+
+
+def _sizes(C, K, L, n_seg):
+    """(offsets of gp, Hll, gl, W and the scratch, total length) of the one
+    allocation of a call: the blocks, the camera pass's partials (n_seg,
+    28), each camera's cost (C,) and the camera sums' count of finished
+    blocks."""
+    o_gp = 21 * C
+    o_hll = o_gp + 6 * C
+    o_gl = o_hll + 6 * L
+    o_w = o_gl + 3 * L
+    o_scratch = o_w + 18 * K * L
+    return (o_gp, o_hll, o_gl, o_w, o_scratch), o_scratch + 28 * n_seg + C + 1
+
+
+def _views(buf, C, K, L):
+    """(Hpp (C, 21), gp (C, 6), Hll (6, L), gl (3, L), W (18, K, L)): the
+    contiguous views of the blocks in buf."""
+    (o_gp, o_hll, o_gl, o_w, _), _ = _sizes(C, K, L, 0)
+    return (buf.as_strided((C, 21), (21, 1), 0),
+            buf.as_strided((C, 6), (6, 1), o_gp),
+            buf.as_strided((6, L), (L, 1), o_hll),
+            buf.as_strided((3, L), (L, 1), o_gl),
+            buf.as_strided((18, K, L), (K * L, L, 1), o_w))
+
+
+def assemble_out(n_cams, w, cam_index=None):
+    """An ``AssembleOut`` for calls on the slot grid of w (K, L) with
+    n_cams cameras and the grid's camera index (None on the CPU)."""
+    K, L = w.shape
+    n_seg = 0 if cam_index is None else cam_index.slots.shape[0]
+    return AssembleOut(
+        torch.empty(_sizes(n_cams, K, L, n_seg)[1], dtype=w.dtype,
+                    device=w.device),
+        torch.empty((), dtype=w.dtype, device=w.device))
+
+
+def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index, loss,
+            out=None):
     """The kernel on CUDA tensors; index is checked against w and
-    cam_of_slot, which camera_index checked with it."""
+    cam_of_slot, which camera_index checked with it. out: an
+    ``AssembleOut`` of this grid, or None (allocated here)."""
     global LAUNCHES
     dtype, device = points.dtype, points.device
     if dtype not in (torch.float32, torch.float64):
@@ -242,25 +287,21 @@ def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index, loss):
                 f"{tuple(a.shape)} on {a.device}")
     n_seg = index.slots.shape[0]
     lib = _build.library()
-    # one allocation for the outputs and the scratch (the camera pass's
-    # partials (n_seg, 28), each camera's cost (C,), the camera sums' count
-    # of finished blocks), each output a contiguous view of it, and the
-    # device switched in C: the host's time a call is most of the kernel's
-    # at the headline shapes. The cost has its own, since callers keep it
-    # longer than the blocks.
-    o_gp = 21 * C
-    o_hll = o_gp + 6 * C
-    o_gl = o_hll + 6 * L
-    o_w = o_gl + 3 * L
-    o_scratch = o_w + 18 * K * L
-    buf = torch.empty(o_scratch + 28 * n_seg + C + 1, dtype=dtype,
-                      device=device)
-    Hpp = buf.as_strided((C, 21), (21, 1), 0)
-    gp = buf.as_strided((C, 6), (6, 1), o_gp)
-    Hll = buf.as_strided((6, L), (L, 1), o_hll)
-    gl = buf.as_strided((3, L), (L, 1), o_gl)
-    W = buf.as_strided((18, K, L), (K * L, L, 1), o_w)
-    cost = torch.empty((), dtype=dtype, device=device)
+    # one allocation for the outputs and the scratch, each output a
+    # contiguous view of it, and the device switched in C: the host's time
+    # a call is most of the kernel's at the headline shapes. The cost has
+    # its own, since callers keep it longer than the blocks.
+    (_, _, _, _, o_scratch), n_buf = _sizes(C, K, L, n_seg)
+    if out is None:
+        out = AssembleOut(torch.empty(n_buf, dtype=dtype, device=device),
+                          torch.empty((), dtype=dtype, device=device))
+    elif (out.buf.shape != (n_buf,) or out.cost.shape != ()
+          or any(a.dtype != dtype or a.device != device
+                 for a in out)):
+        raise ValueError("ba_assemble: out was not made by assemble_out for "
+                         "this grid, camera index and dtype")
+    buf, cost = out
+    Hpp, gp, Hll, gl, W = _views(buf, C, K, L)
     fn = lib.ba_assemble_f32 if dtype == torch.float32 else lib.ba_assemble_f64
     # the loss as (code, its parameter, the parameter squared), the square
     # taken in double as the plain version takes it
@@ -280,7 +321,7 @@ def _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, index, loss):
 
 
 def linearize_assemble(R_flat, t, points, uv0, uv1, w, cam_of_slot,
-                       cam_index=None, loss=None):
+                       cam_index=None, loss=None, out=None):
     """Linearize + assemble: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.
 
@@ -289,17 +330,25 @@ def linearize_assemble(R_flat, t, points, uv0, uv1, w, cam_of_slot,
     (the kernel builds it when it is None; the plain version does not use
     it); loss a ``residuals.robust.Loss`` or None. A live slot that the
     loss gives weight 0 stays in the index and adds exact zeros to the
-    sums (and its 0.5 w rho to the cost). Returns (Hpp (C, 21), gp (C, 6),
+    sums (and its 0.5 w rho to the cost). out: an ``assemble_out`` of this
+    grid and camera index, written in place of new outputs (the plain
+    version copies its results there). Returns (Hpp (C, 21), gp (C, 6),
     Hll (6, L), gl (3, L), W (18, K, L), cost ())."""
     robust.check(loss)
     if cam_index is not None:
         _check_index(cam_index, w, cam_of_slot, R_flat.shape[0])
     if points.device.type == "cpu":
-        return linearize_assemble_plain(R_flat, t, points, uv0, uv1, w,
-                                        cam_of_slot, loss)
+        got = linearize_assemble_plain(R_flat, t, points, uv0, uv1, w,
+                                       cam_of_slot, loss)
+        if out is None:
+            return got
+        dest = _views(out.buf, R_flat.shape[0], *w.shape) + (out.cost,)
+        for d, g in zip(dest, got):
+            d.copy_(g)
+        return dest
     if points.device.type != "cuda":
         raise ValueError(f"ba_assemble: no kernel for device {points.device}")
     if cam_index is None:
         cam_index = camera_index(w, cam_of_slot, R_flat.shape[0])
     return _launch(R_flat, t, points, uv0, uv1, w, cam_of_slot, cam_index,
-                   loss)
+                   loss, out)

@@ -43,7 +43,17 @@ def check_size(n):
                          f"1 <= n <= {MAX_N}")
 
 
-def _launch(S, b):
+def _check_out(out, b, name):
+    """Raise unless out can take the solution of right-hand side b."""
+    if (out.shape != b.shape or out.dtype != b.dtype
+            or out.device != b.device or not out.is_contiguous()):
+        raise ValueError(
+            f"{name}: out must be a contiguous {b.dtype} tensor of shape "
+            f"{tuple(b.shape)} on {b.device}; got {out.dtype} "
+            f"{tuple(out.shape)} on {out.device}")
+
+
+def _launch(S, b, out=None):
     global LAUNCHES
     dtype, device = S.dtype, S.device
     if dtype not in (torch.float32, torch.float64):
@@ -64,7 +74,9 @@ def _launch(S, b):
     # the factor's scratch: the copy of S, then the nt inverted diagonal tiles
     A = torch.empty(n * n + nt * TILE * TILE, dtype=dtype, device=device)
     yz = torch.empty(2 * n, dtype=dtype, device=device)
-    x = torch.empty_like(b)
+    if out is not None:
+        _check_out(out, b, "spd_solve")
+    x = torch.empty_like(b) if out is None else out
     flags = torch.empty(nt, dtype=torch.int32, device=device)
     fn = lib.spd_solve_f32 if dtype == torch.float32 else lib.spd_solve_f64
     with torch.cuda.device(device):
@@ -76,11 +88,16 @@ def _launch(S, b):
     return x
 
 
-def spd_solve(S, b):
+def spd_solve(S, b, out=None):
     """Solve S x = b for SPD S (n, n), b (n,): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. out: a tensor like b that
+    takes x (returned), or None."""
     if S.device.type == "cpu":
-        return spd_solve_plain(S, b)
+        x = spd_solve_plain(S, b)
+        if out is None:
+            return x
+        _check_out(out, b, "spd_solve")
+        return out.copy_(x)
     if S.device.type != "cuda":
         raise ValueError(f"spd_solve: no kernel for device {S.device}")
-    return _launch(S, b)
+    return _launch(S, b, out)

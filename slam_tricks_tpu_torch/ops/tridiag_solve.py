@@ -34,6 +34,7 @@ solver's bad-step branch turns a non-finite step into a zero step.
 import torch
 
 from slam_tricks_tpu_torch.ops import _build
+from slam_tricks_tpu_torch.ops.spd_solve import _check_out
 
 LAUNCHES = 0    # kernel launches since the last reset (chip_smoke.py reads it)
 MAX_M = 512
@@ -117,7 +118,7 @@ def tridiag_solve_plain(D, E, r):
     return x
 
 
-def _launch(D, E, r):
+def _launch(D, E, r, out=None):
     global LAUNCHES
     dtype, device = D.dtype, D.device
     if dtype not in (torch.float32, torch.float64):
@@ -147,7 +148,9 @@ def _launch(D, E, r):
                         device=device)
     lev = torch.empty(2 * hmax * (2 * m * m + m * q), dtype=dtype,
                       device=device)
-    x = torch.empty_like(r)
+    if out is not None:
+        _check_out(out, r, "tridiag_solve")
+    x = torch.empty_like(r) if out is None else out
     work = None                  # tiles in shared memory, else here
     if smem_bytes(m, dtype, q) > _build.SMEM_PER_BLOCK:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -163,12 +166,17 @@ def _launch(D, E, r):
     return x
 
 
-def tridiag_solve(D, E, r):
+def tridiag_solve(D, E, r, out=None):
     """Solve the SPD block-tridiagonal system (D (G, m, m), E (G-1, m, m),
     r (G, m) or (G, m, q)) -> x of r's shape: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. out: a tensor like r that
+    takes x (returned), or None."""
     if D.device.type == "cpu":
-        return tridiag_solve_plain(D, E, r)
+        x = tridiag_solve_plain(D, E, r)
+        if out is None:
+            return x
+        _check_out(out, r, "tridiag_solve")
+        return out.copy_(x)
     if D.device.type != "cuda":
         raise ValueError(f"tridiag_solve: no kernel for device {D.device}")
-    return _launch(D, E, r)
+    return _launch(D, E, r, out)

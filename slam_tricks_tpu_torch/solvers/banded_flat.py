@@ -39,20 +39,25 @@ sides), which the VI chain solver calls. The covariances (``banded_covariances``
 Takahashi recursion on the super-blocks, plain torch.
 """
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from slam_tricks_tpu_torch.ops.ba_assemble import (CameraIndex, layout_index,
+from slam_tricks_tpu_torch.ops.ba_assemble import (CameraIndex, assemble_out,
+                                                   layout_index,
                                                    linearize_assemble)
 from slam_tricks_tpu_torch.ops.tridiag_solve import tridiag_solve
 from slam_tricks_tpu_torch.residuals import robust
 from slam_tricks_tpu_torch.solvers.common import (associative_scan,
+                                                  device_constant,
+                                                  device_index,
                                                   first_camera_fixed, psum,
                                                   set_full_precision,
                                                   sum_table, table_sum)
-from slam_tricks_tpu_torch.solvers.schur import lm_loop
+from slam_tricks_tpu_torch.solvers.schur import (SchurSteps, lm_graphed,
+                                                 lm_loop)
 from slam_tricks_tpu_torch.solvers.schur_flat_sm import (_DIAG6, _inv3x3_flat,
                                                          _sym6_expand,
                                                          damp_hll)
@@ -200,7 +205,7 @@ def _cam_sum(cols, bw: BandedWork):
 
 def _mat3vec(h, v):
     """Symmetric 3x3 blocks (6, Lpad) times vectors (3, Lpad) -> (3, Lpad)."""
-    H = h[_SYM33].view(3, 3, -1)
+    H = h[device_index(_SYM33, h.device)].view(3, 3, -1)
     return H[:, 0] * v[0] + H[:, 1] * v[1] + H[:, 2] * v[2]
 
 
@@ -233,14 +238,14 @@ def _assemble_bands(Hpp, Hll, W, lam, fixed_mask, bw: BandedWork,
     C = bw.n_cams
     K = W.shape[1]
 
-    dpp = torch.clamp_min(Hpp[:, _DIAG6], 1e-12)
+    dpp = torch.clamp_min(Hpp[:, device_index(_DIAG6, device)], 1e-12)
     Hpp_d = _sym6_expand(Hpp) + torch.diag_embed(lam * dpp)
     Hll_d, dll = damp_hll(Hll, lam)
     hinv = torch.stack(_inv3x3_flat(Hll_d))
 
     # Y(k) = W(k) Hll^-1, (6, 3, K, Lpad)
     W3 = W.view(6, 3, K, -1)
-    H = hinv[_SYM33].view(3, 3, -1)
+    H = hinv[device_index(_SYM33, device)].view(3, 3, -1)
     Y = (W3[:, 0, None] * H[0][None, :, None] + W3[:, 1, None] * H[1][None, :, None]
          + W3[:, 2, None] * H[2][None, :, None])
     # band o: -sum over slots k of Y(k + o) W(k)^T, at camera c0 + k
@@ -267,45 +272,67 @@ def _assemble_bands(Hpp, Hll, W, lam, fixed_mask, bw: BandedWork,
 def _group_superblocks(bands, C):
     """Band blocks (K, C, 6, 6) -> the super-block tridiagonal: Dm (G, m, m),
     Em (G-1, m, m), with m = 6 Kb, Kb = max(K, 2), the cameras padded to
-    G Kb by identity diagonal blocks. Returns (Dm, Em, Kb)."""
+    G Kb by identity diagonal blocks. Returns (Dm, Em, Kb). Two gathers
+    from the bands and the numbers 0 and 1 by ``_superblock_index``'s
+    tables, which are made once a (K, C) and device."""
     K = bands.shape[0]
-    dtype, device = bands.dtype, bands.device
+    iD, iE, Kb = _superblock_index(K, C, bands.device)
+    src = torch.cat([bands.reshape(-1),
+                     device_constant((0.0, 1.0), bands.dtype, bands.device)])
+    return src[iD], src[iE], Kb
+
+
+@functools.lru_cache(maxsize=16)
+def _superblock_index(K, C, device):
+    """(iD (G, m, m), iE (G-1, m, m), Kb): where each entry of Dm and Em
+    comes from in ``_group_superblocks``' source, the K C 36 band entries
+    (band o at camera c, entry (i, j), at (o C + c) 36 + 6 i + j), then 0,
+    then 1. Diagonal super-block g holds at (a, b), cameras g Kb + a and
+    g Kb + b, band a - b at camera g Kb + b (a >= b) or its transpose, band
+    b - a at g Kb + a (a < b); sub-diagonal block g holds band
+    a - b + Kb at camera g Kb + b (a < b; zero else), the band rows past a
+    super-block's end. Band o >= K, and every band at a padding camera
+    c >= C but the identity of band 0, is zero."""
     Kb = max(K, 2)
     G = -(-C // Kb)
-    Cp = G * Kb
-    B = torch.zeros((Kb, Cp, 6, 6), dtype=dtype, device=device)
-    B[:K, :C] = bands
-    B[0, C:] = torch.eye(6, dtype=dtype, device=device)
-    B = B.view(Kb, G, Kb, 6, 6)
+    zero, one = K * C * 36, K * C * 36 + 1
+    i = np.arange(6)
+    ii, jj = i[:, None], i[None, :]
 
-    # diagonal super-block g: (r + o, r) <- band o at camera g Kb + r, and
-    # its transpose at (r, r + o); sub-diagonal: rows past Kb spill over
-    lo = [(o, r) for o in range(Kb) for r in range(Kb - o)]
-    up = [(o, r) for o, r in lo if o > 0]
-    sub = [(o, r) for o in range(1, Kb) for r in range(Kb - o, Kb)]
-    Dg = torch.zeros((G, Kb, Kb, 6, 6), dtype=dtype, device=device)
-    oi, ri = map(list, zip(*lo))
-    Dg[:, [o + r for o, r in lo], ri] = B[oi, :, ri].transpose(0, 1)
-    oi, ri = map(list, zip(*up))
-    Dg[:, ri, [o + r for o, r in up]] = B[oi, :, ri].transpose(0, 1).transpose(-1, -2)
-    Dm = Dg.permute(0, 1, 3, 2, 4).reshape(G, 6 * Kb, 6 * Kb)
-    Eg = torch.zeros((G - 1, Kb, Kb, 6, 6), dtype=dtype, device=device)
-    if G > 1:
-        oi, ri = map(list, zip(*sub))
-        Eg[:, [o + r - Kb for o, r in sub], ri] = (
-            B[oi, :-1, ri].transpose(0, 1))
-    Em = Eg.permute(0, 1, 3, 2, 4).reshape(G - 1, 6 * Kb, 6 * Kb)
-    return Dm.contiguous(), Em.contiguous(), Kb
+    def blocks(o, c, transpose):
+        """(..., 6, 6) source indices of band o at camera c (arrays)."""
+        o, c = o[..., None, None], c[..., None, None]
+        t = transpose[..., None, None]
+        band = (o * C + c) * 36 + np.where(t, 6 * jj + ii, 6 * ii + jj)
+        eye = np.where((o == 0) & (c >= C) & (ii == jj), one, zero)
+        return np.where((o < K) & (c < C), band, eye)
+
+    g, a, b = np.meshgrid(np.arange(G), np.arange(Kb), np.arange(Kb),
+                          indexing="ij")
+    lower = a >= b
+    iD = blocks(np.abs(a - b), g * Kb + np.minimum(a, b), ~lower)
+    iE = np.where(lower[..., None, None], zero,
+                  blocks(a - b + Kb, g * Kb + b, np.zeros_like(lower)))[:-1]
+    m = 6 * Kb
+
+    def table(x):
+        return torch.as_tensor(np.ascontiguousarray(
+            x.transpose(0, 1, 3, 2, 4).reshape(-1, m, m)), device=device)
+    return table(iD), table(iE), Kb
 
 
 def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
-                          bw: BandedWork, psum_axis=None):
+                          bw: BandedWork, psum_axis=None, replay=None):
     """The damped, gauge-fixed reduced camera system as a super-block
     tridiagonal: (Dm (G, m, m), Em (G-1, m, m), rm (G, m), hinv (6, Lpad),
     dpp (C, 6), dll (3, Lpad), free (C,)); the last four are what the
     back-substitution and the LM step need. psum_axis: the bands and the
     right-hand side's landmark part are summed over the group's ranks, so
-    that every rank holds the same system."""
+    that every rank holds the same system. replay: a CUDA graph captured
+    from a call with these same tensors (``schur.lm_graphed``), replayed in
+    place of the computation; its outputs are returned."""
+    if replay is not None:
+        return replay()
     C = bw.n_cams
     bands, hinv, dpp, dll, free = _assemble_bands(Hpp, Hll, W, lam,
                                                   fixed_mask, bw, psum_axis)
@@ -345,6 +372,35 @@ def _solve_banded(Hpp, gp, Hll, gl, W, lam, fixed_mask, bw: BandedWork,
     return dp, dl, dpp, dll.T
 
 
+def _steps(bw: BandedWork, fixed_mask, loss):
+    """The pieces of an LM step that ``schur.lm_graphed`` runs apart."""
+    C = bw.n_cams
+    tables = _superblock_index(bw.w.shape[0], C, bw.w.device)
+
+    def linearize(poses, points, out):
+        *blocks, cost = linearize_assemble(
+            poses.R.reshape(C, 9), poses.t, points, bw.uv0, bw.uv1, bw.w,
+            bw.cam_of_slot, bw.cam_index, loss, out=out)
+        return tuple(blocks), cost
+
+    def system(blocks, lam, replay=None):
+        return reduced_camera_system(*blocks, lam, fixed_mask, bw,
+                                     replay=replay)
+
+    def linear_solve(system, out):
+        return tridiag_solve(*system[:3], out=out).view(-1, 6)[:C]
+
+    return SchurSteps(
+        linearize=linearize,
+        linearize_out=lambda: assemble_out(C, bw.w, bw.cam_index),
+        system=system, linear_solve=linear_solve,
+        solve_out=lambda: bw.w.new_empty(tables[0].shape[:2]),  # (G, m)
+        back_substitute=lambda dp, blocks, system: _backsub(
+            dp, system[6], blocks[4], system[3], blocks[3], bw),
+        diagonals=lambda system: (system[4], system[5].T),
+        keep=tables)
+
+
 def solve_ba_banded(poses0, points0, bw: BandedWork, *, fixed_mask=None,
                     max_iters=30, lambda_init=1e-4, xtol=1e-12, loss=None,
                     costs=None, psum_axis=None, slot_points=False):
@@ -357,10 +413,16 @@ def solve_ba_banded(poses0, points0, bw: BandedWork, *, fixed_mask=None,
     (default: camera 0); lambda_init the first damping; the solve stops
     when an accepted step is shorter than xtol; loss a
     ``residuals.robust.Loss`` or None. The loop runs on the host with one
-    sync a step; if `costs` is a list, the cost at the start and after each
-    step is appended to it. On the card the block-tridiagonal kernel takes
-    super-blocks of m = 6 max(K, 2) <= 512, every band K <= 32 that
-    `build_banded_work` accepts by default. Returns a BAState.
+    sync a step; on a CUDA device with no psum_axis each iteration replays
+    CUDA graphs of the plain-torch work between the kernels
+    (``schur.lm_graphed``, captured on a layout's first solve of more than
+    one iteration), with the same bits; the graphs keep `bw` and
+    `fixed_mask` alive until another layout's graphed solve or
+    ``schur.release_graphs()``. If `costs` is a list, the cost at the start
+    and after each step is appended to it. On the card the
+    block-tridiagonal kernel takes super-blocks of m = 6 max(K, 2) <= 512,
+    every band K <= 32 that `build_banded_work` accepts by default. Returns
+    a BAState.
 
     psum_axis: a ``torch.distributed`` process group whose ranks each run
     this solve on their own slice of the chunks (``parallel/banded_dist``:
@@ -372,16 +434,25 @@ def solve_ba_banded(poses0, points0, bw: BandedWork, *, fixed_mask=None,
     gathers them once)."""
     robust.check(loss)
     set_full_precision()
-    if fixed_mask is None:
-        fixed_mask = first_camera_fixed(bw.n_cams, points0.device)
-    final = lm_loop(
-        poses0, points0[bw.gather_idx],
-        lambda poses, points: _banded_quantities(poses, points, bw, loss,
-                                                 psum_axis),
-        lambda blocks, lam: _solve_banded(*blocks, lam, fixed_mask, bw,
-                                          psum_axis),
-        max_iters=max_iters, lambda_init=lambda_init, xtol=xtol, costs=costs,
-        psum_axis=psum_axis)
+    if points0.is_cuda and psum_axis is None:
+        final = lm_graphed(
+            poses0, points0[bw.gather_idx], (bw, fixed_mask),
+            ("banded", loss, xtol),
+            lambda: _steps(bw, first_camera_fixed(bw.n_cams, points0.device)
+                           if fixed_mask is None else fixed_mask, loss),
+            max_iters=max_iters, lambda_init=lambda_init, xtol=xtol,
+            costs=costs)
+    else:
+        if fixed_mask is None:
+            fixed_mask = first_camera_fixed(bw.n_cams, points0.device)
+        final = lm_loop(
+            poses0, points0[bw.gather_idx],
+            lambda poses, points: _banded_quantities(poses, points, bw, loss,
+                                                     psum_axis),
+            lambda blocks, lam: _solve_banded(*blocks, lam, fixed_mask, bw,
+                                              psum_axis),
+            max_iters=max_iters, lambda_init=lambda_init, xtol=xtol,
+            costs=costs, psum_axis=psum_axis)
     if slot_points:
         return final
     return final._replace(points=scatter_slots(points0, final.points,
@@ -602,7 +673,7 @@ def banded_covariances(poses, points, bw: BandedWork, fixed_mask, *,
     sb = _sinv_bands(P, Bsub, Cp, K, Kb)
     chunk = bw.chunk
     free_p = torch.cat([free, free.new_zeros(Cp - C)])
-    H = hinv[_SYM33].view(3, 3, Lpad)
+    H = hinv[device_index(_SYM33, hinv.device)].view(3, 3, Lpad)
     V = torch.einsum("imkl,mjl->kijl", W.view(6, 3, K, Lpad), H)
     cam0 = bw.c0[None, :] + torch.arange(K, device=device)[:, None]
     fk = free_p[cam0.clamp(0, Cp - 1)].repeat_interleave(chunk, dim=1)

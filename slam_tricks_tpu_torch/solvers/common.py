@@ -8,6 +8,7 @@ delta = 0: r(delta) = residual_fn(retract(x, delta), *args),
 J = dr/ddelta at 0, so Jacobians come out in the tangent space.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -15,6 +16,27 @@ import torch.distributed as dist
 
 from slam_tricks_tpu_torch.ops.smallchol import cho_solve_small
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
+
+
+def device_index(idx, device):
+    """The ints of `idx` (a list or tuple) as an int64 tensor on `device`,
+    made once a device and kept. A Python list used as an index is copied
+    to the device at every use, a copy that waits for the device's queue
+    and that a CUDA graph cannot capture. Never write into the result."""
+    return _device_tensor(tuple(idx), torch.int64, torch.device(device))
+
+
+def device_constant(values, dtype, device):
+    """The numbers of `values` as a tensor of `dtype` on `device`, made once
+    and kept, as ``device_index``. Never write into the result."""
+    return _device_tensor(tuple(values), dtype, torch.device(device))
+
+
+# unbounded: a CUDA graph that read one keeps its address (a few small
+# constants a device and dtype)
+@functools.lru_cache(maxsize=None)
+def _device_tensor(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def set_full_precision():

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slam_tricks_tpu_torch.solvers.common import psum
+from slam_tricks_tpu_torch.solvers.common import device_index, psum
 from slam_tricks_tpu_torch.solvers.pcg import make_tridiag_precond, pcg
 from slam_tricks_tpu_torch.solvers.schur import build_track_table
 from slam_tricks_tpu_torch.solvers.schur_flat import FlatWork, obs_slots
@@ -168,7 +168,8 @@ def solve_rcs_pcg_flat(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: FlatWork,
     process."""
     dtype, device = gp.dtype, gp.device
     K, L = work.slot.mask.shape
-    dpp = torch.clamp_min(Hpp[:, _DIAG6], 1e-12)                  # (C, 6)
+    dpp = torch.clamp_min(Hpp[:, device_index(_DIAG6, device)],
+                          1e-12)                                  # (C, 6)
     Hpp_d = _sym6_expand(Hpp) + torch.diag_embed(lam * dpp)
     Hll_d, dll = damp_hll(Hll, lam)
     hinv = _inv3x3_flat(Hll_d)                                    # 6 x (L,)

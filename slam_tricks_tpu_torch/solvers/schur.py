@@ -23,7 +23,7 @@ Gauge: fixed cameras get identity rows and columns in S. Tangent per
 camera: [omega, dt] (SO(3) x R^3), poses stored as T_cw.
 """
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,6 +109,53 @@ def _retract_state(poses, points, dp, dl):
             points + dl)
 
 
+def lm_retract(poses, points, dp, dl, psum_axis=None):
+    """The finiteness guard and the trial state of one LM step: a step that
+    is not finite (on any rank of psum_axis) becomes a zero step. Returns
+    (bad, dp_s, dl_s, poses_try, points_try)."""
+    bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
+    if psum_axis is not None:
+        # every rank must agree before the replicated state is touched
+        bad = psum((bad.to(dp.dtype),), psum_axis)[0] > 0
+    dp_s = torch.where(bad, torch.zeros_like(dp), dp)
+    dl_s = torch.where(bad, torch.zeros_like(dl), dl)
+    poses_try, points_try = _retract_state(poses, points, dp_s, dl_s)
+    return bad, dp_s, dl_s, poses_try, points_try
+
+
+def lm_decide(cost, cost_try, lam, nu, dp_s, dl_s, diag_pp, diag_ll, gp, gl,
+              bad, *, xtol, gtol=0.0, psum_axis=None, n_local=None):
+    """The model decrease, the control law and the stop test of one LM
+    step (``lm_loop``'s arguments). Returns (accept, lam, nu, stop), device
+    tensors."""
+    if psum_axis is None:
+        pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl))
+        step_l = torch.sum(dl_s * dl_s)
+    else:
+        pred_l, step_l = _landmark_terms(
+            dl_s, lam * diag_ll * dl_s - gl, psum_axis, n_local)
+    pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp)) + pred_l)
+    accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred, bad)
+    step_sq = torch.sum(dp_s * dp_s) + step_l
+    stop = accept & (step_sq < xtol * xtol)
+    if gtol > 0:
+        stop = stop | (torch.maximum(gp.abs().max(), gl.abs().max()) < gtol)
+    return accept, lam, nu, stop
+
+
+def lm_select(accept, new, old, inplace=False):
+    """torch.where(accept, n, o) of each pair of the sequences new and old;
+    inplace=True writes each into its o instead of a new tensor. Returns a
+    tuple."""
+    return tuple(torch.where(accept, n, o, out=o) if inplace
+                 else torch.where(accept, n, o) for n, o in zip(new, old))
+
+
+EAGER_ITERATIONS = 0    # LM iterations run without a CUDA graph since import
+GRAPH_CAPTURES = 0      # CUDA graphs captured by ``lm_graphed``
+GRAPH_REPLAYS = 0       # and their replays
+
+
 def lm_loop(poses0, points0, quantities, solve, *, max_iters,
             lambda_init=1e-4, xtol=1e-12, gtol=0.0, costs=None,
             callback=None, grads=None, psum_axis=None, n_local=None):
@@ -148,6 +195,7 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
     ``slam:lm.linearize``, ``slam:lm.accept`` (the model decrease, the
     control law, the stop test and the state's selection) and
     ``slam:sync.stop``, the host's wait for the stop flag."""
+    global EAGER_ITERATIONS
     if psum_axis is not None and gtol > 0:
         raise ValueError("lm_loop: gtol > 0 is not supported with psum_axis")
     dtype, device = points0.dtype, points0.device
@@ -166,49 +214,277 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
             with annotate("slam:lm.solve"):
                 dp, dl, diag_pp, diag_ll = solve(blocks, lam)
             with annotate("slam:lm.retract"):
-                bad = ~(torch.isfinite(dp).all() & torch.isfinite(dl).all())
-                if psum_axis is not None:
-                    # every rank must agree before the replicated state is
-                    # touched
-                    bad = psum((bad.to(dtype),), psum_axis)[0] > 0
-                dp_s = torch.where(bad, torch.zeros_like(dp), dp)
-                dl_s = torch.where(bad, torch.zeros_like(dl), dl)
-                poses_try, points_try = _retract_state(poses, points, dp_s,
-                                                       dl_s)
+                bad, dp_s, dl_s, poses_try, points_try = lm_retract(
+                    poses, points, dp, dl, psum_axis)
             with annotate("slam:lm.linearize"):
                 blocks_try, cost_try = quantities(poses_try, points_try)
 
             with annotate("slam:lm.accept"):
-                if psum_axis is None:
-                    pred_l = torch.sum(dl_s * (lam * diag_ll * dl_s - gl))
-                    step_l = torch.sum(dl_s * dl_s)
-                else:
-                    pred_l, step_l = _landmark_terms(
-                        dl_s, lam * diag_ll * dl_s - gl, psum_axis, n_local)
-                pred = 0.5 * (torch.sum(dp_s * (lam * diag_pp * dp_s - gp))
-                              + pred_l)
-                accept, lam, nu = lm_accept(cost, cost_try, lam, nu, pred,
-                                            bad)
-                step_sq = torch.sum(dp_s * dp_s) + step_l
-                stop = accept & (step_sq < xtol * xtol)
-                if gtol > 0:
-                    stop = stop | (torch.maximum(gp.abs().max(),
-                                                 gl.abs().max()) < gtol)
-                poses = se3.SE3(torch.where(accept, poses_try.R, poses.R),
-                                torch.where(accept, poses_try.t, poses.t))
-                points = torch.where(accept, points_try, points)
-                cost = torch.where(accept, cost_try, cost)
-                blocks = tuple(torch.where(accept, a, b)
-                               for a, b in zip(blocks_try, blocks))
+                accept, lam, nu, stop = lm_decide(
+                    cost, cost_try, lam, nu, dp_s, dl_s, diag_pp, diag_ll,
+                    gp, gl, bad, xtol=xtol, gtol=gtol, psum_axis=psum_axis,
+                    n_local=n_local)
+                R, t, points, cost = lm_select(
+                    accept, (poses_try.R, poses_try.t, points_try, cost_try),
+                    (poses.R, poses.t, points, cost))
+                poses = se3.SE3(R, t)
+                blocks = lm_select(accept, blocks_try, blocks)
             if callback is not None:
                 callback(it, cost, lam)
             it += 1
+            EAGER_ITERATIONS += 1
             if costs is not None:
                 costs.append(cost)
             with annotate("slam:sync.stop"):
                 done = bool(stop)                       # one sync a step
     return BAState(poses=poses, points=points, cost=cost, lam=lam, nu=nu,
                    it=it, done=done)
+
+
+# ---- the loop as CUDA graphs ----
+
+class SchurSteps(NamedTuple):
+    """A Schur solver's LM step in the pieces that ``lm_graphed`` runs
+    apart: the calls that launch the hand-written kernels (linearize,
+    linear_solve) run eagerly; system and back_substitute, plain torch,
+    are captured. Each calls its function through the solver module's own
+    name, so that whoever wraps that name sees the call."""
+    linearize: Callable         # (poses, points, out) -> (blocks, cost),
+    #                             written into out
+    linearize_out: Callable     # () -> a new `out` for linearize
+    system: Callable            # (blocks, lam, replay=None) -> the reduced
+    #                             system, a tuple of tensors
+    linear_solve: Callable      # (system, out) -> dp (C, 6), a view of out
+    solve_out: Callable         # () -> a new `out` for linear_solve
+    back_substitute: Callable   # (dp, blocks, system) -> dl (L, 3)
+    diagonals: Callable         # system -> (diag_pp (C, 6), diag_ll (L, 3))
+    keep: tuple = ()            # tensors the segments read from a bounded
+    #                             cache: the graphs read them by address
+
+
+class _Key(NamedTuple):
+    held: tuple       # objects a capture read by address: compared by identity
+    values: tuple     # numbers and settings it baked in: compared by value
+
+    def matches(self, other):
+        return (len(self.held) == len(other.held)
+                and all(a is b for a, b in zip(self.held, other.held))
+                and self.values == other.values)
+
+
+def _captured(fn, pool, stream):
+    """(graph, fn's result): fn captured on `stream` into the memory pool
+    `pool`, as torch.cuda.graph captures less its empty_cache and
+    gc.collect, which would empty the whole process's allocator cache at
+    every capture (its synchronize: once a layout, in _capture)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool)
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    return graph, out
+
+
+_SIDES = {}     # device index -> (side stream, a graph that keeps the pool)
+
+
+def _side(device):
+    """(stream, pool): the side stream and the memory pool of every
+    layout's warm-up and graphs on `device`. The caching allocator reuses a
+    freed block only on the stream that made it, and frees a graph pool
+    only at an empty_cache once its last graph is gone, so a stream and a
+    pool of each layout's own would keep every evicted layout's memory
+    reserved; one of each, the pool held by a graph of one fill that is
+    never replayed, hands an evicted layout's blocks to the next."""
+    if device.index not in _SIDES:
+        stream = torch.cuda.Stream(device)
+        _SIDES[device.index] = stream, _captured(
+            lambda: torch.zeros(1, device=device),
+            torch.cuda.graph_pool_handle(), stream)[0]
+    stream, keeper = _SIDES[device.index]
+    return stream, keeper.pool()
+
+
+class _Graph:
+    """One captured segment: its CUDA graph and the outputs it writes."""
+
+    def __init__(self, fn, pool, stream):
+        global GRAPH_CAPTURES
+        self.graph, self.out = _captured(fn, pool, stream)
+        GRAPH_CAPTURES += 1
+
+    def __call__(self):
+        global GRAPH_REPLAYS
+        self.graph.replay()
+        GRAPH_REPLAYS += 1
+        return self.out
+
+
+class _LoopGraphs:
+    """One layout's graphed LM iteration: the static tensors that hold the
+    state, the trial and the kernels' results, and, once captured, the four
+    segments' graphs (reduced system, back-substitution, retract, accept)."""
+
+    def __init__(self, key, steps, poses0, points0, xtol):
+        self.key, self.steps, self.xtol = key, steps, xtol
+        # each of the caller's dtype and device: a mismatch raises in the
+        # kernel's wrapper, as in lm_loop, and is not converted here
+        self.R = poses0.R.new_empty(poses0.R.shape)
+        self.t = poses0.t.new_empty(poses0.t.shape)
+        self.X = points0.new_empty(points0.shape)
+        self.lam = points0.new_empty(())
+        self.nu = points0.new_empty(())
+        self.state_out = steps.linearize_out()
+        self.trial_out = steps.linearize_out()
+        self.dp_out = steps.solve_out()
+        self.side, self.pool = _side(points0.device)
+        self.graphs = None
+
+    # the segments: each reads what the ones before it left in self
+    def _system(self):
+        return self.steps.system(self.blocks, self.lam)
+
+    def _back_substitute(self):
+        return self.steps.back_substitute(self.dp, self.blocks, self.system)
+
+    def _retract(self):
+        return lm_retract(se3.SE3(self.R, self.t), self.X, self.dp, self.dl)
+
+    def _accept(self):
+        bad, dp_s, dl_s, poses_try, points_try = self.trial
+        diag_pp, diag_ll = self.steps.diagonals(self.system)
+        accept, lam, nu, stop = lm_decide(
+            self.cost, self.cost_try, self.lam, self.nu, dp_s, dl_s, diag_pp,
+            diag_ll, self.blocks[1], self.blocks[3].T, bad, xtol=self.xtol)
+        lm_select(accept, (poses_try.R, poses_try.t, points_try,
+                           self.cost_try) + tuple(self.blocks_try),
+                  (self.R, self.t, self.X, self.cost) + tuple(self.blocks),
+                  inplace=True)
+        self.lam.copy_(lam)
+        self.nu.copy_(nu)
+        return stop
+
+    def _iteration(self):
+        """One LM iteration, in ``lm_loop``'s spans: each segment replayed,
+        or run eagerly before the capture. Returns the stop flag."""
+        st, g = self.steps, self.graphs
+        run = (lambda i, fn: fn()) if g is None else (lambda i, fn: g[i]())
+        with annotate("slam:lm.solve"):
+            with annotate("slam:rcs"):
+                self.system = st.system(self.blocks, self.lam,
+                                        replay=None if g is None else g[0])
+            with annotate("slam:linear_solve"):
+                self.dp = st.linear_solve(self.system, self.dp_out)
+            with annotate("slam:backsub"):
+                self.dl = run(1, self._back_substitute)
+        with annotate("slam:lm.retract"):
+            self.trial = run(2, self._retract)
+        with annotate("slam:lm.linearize"):
+            self.blocks_try, self.cost_try = st.linearize(
+                self.trial[3], self.trial[4], self.trial_out)
+        with annotate("slam:lm.accept"):
+            return run(3, self._accept)
+
+    def _warm_up(self):
+        """The first iteration of a layout, eagerly on a side stream, as
+        ``torch.cuda.graph`` asks before a capture."""
+        global EAGER_ITERATIONS
+        main = torch.cuda.current_stream(self.X.device)
+        self.side.wait_stream(main)
+        with torch.cuda.stream(self.side):
+            stop = self._iteration()
+        main.wait_stream(self.side)
+        EAGER_ITERATIONS += 1
+        return stop
+
+    def _capture(self):
+        """The four segments, in order, into graphs on the device's pool:
+        each captured output stands where the next segment reads it."""
+        with annotate("slam:graph.capture"):
+            torch.cuda.synchronize(self.X.device)
+            graphs = []
+            for fn, name in ((self._system, "system"),
+                             (self._back_substitute, "dl"),
+                             (self._retract, "trial"),
+                             (self._accept, "stop")):
+                graphs.append(_Graph(fn, self.pool, self.side))
+                setattr(self, name, graphs[-1].out)
+            self.graphs = graphs
+
+    def solve(self, poses0, points0, max_iters, lambda_init, costs):
+        self.R.copy_(poses0.R)
+        self.t.copy_(poses0.t)
+        self.X.copy_(points0)
+        self.lam.fill_(lambda_init)
+        self.nu.fill_(2.0)
+        with annotate("slam:lm.linearize"):
+            self.blocks, self.cost = self.steps.linearize(
+                se3.SE3(self.R, self.t), self.X, self.state_out)
+        if costs is not None:
+            costs.append(self.cost.clone())
+        it, done = 0, False
+        while not done and it < max_iters:
+            with annotate("slam:lm.iter"):
+                stop = (self._warm_up() if self.graphs is None
+                        else self._iteration())
+                it += 1
+                if costs is not None:
+                    costs.append(self.cost.clone())
+                with annotate("slam:sync.stop"):
+                    done = bool(stop)                   # one sync a step
+            if self.graphs is None and not done and it < max_iters:
+                self._capture()     # only where a replay follows
+        # values of their own: the next solve overwrites the static tensors
+        return BAState(poses=se3.SE3(self.R.clone(), self.t.clone()),
+                       points=self.X.clone(), cost=self.cost.clone(),
+                       lam=self.lam.clone(), nu=self.nu.clone(), it=it,
+                       done=done)
+
+
+_GRAPHS = [None]    # the last layout's _LoopGraphs: the cache holds one
+
+
+def release_graphs():
+    """Drop ``lm_graphed``'s cache: the last graphed layout's CUDA graphs,
+    the static tensors and the references to the layout and fixed mask
+    they read, and the graphs' memory pool, which the next
+    ``torch.cuda.empty_cache()`` returns to the device. The next graphed
+    solve captures anew."""
+    _GRAPHS[0] = None
+    _SIDES.clear()
+
+
+def lm_graphed(poses0, points0, held, values, make_steps, *, max_iters,
+               lambda_init=1e-4, xtol=1e-12, costs=None):
+    """``lm_loop`` on CUDA tensors with one process and no callback, as CUDA
+    graphs: the reduced camera system, the back-substitution, the retract
+    and the accept are each one graph, replayed in ``lm_loop``'s spans, and
+    the hand-written kernels (linearize + assemble, the linear solve) are
+    launched between them into static tensors. The same step functions as
+    ``lm_loop``'s, so the same bits; one sync a step, the stop flag.
+
+    held: the objects the graphs read by address (the layout, the fixed
+    mask or None), values: what they bake in (the solver, the loss, xtol);
+    make_steps() -> the solver's ``SchurSteps``, called when the cache (one
+    layout, the last, on any device) holds no graphs of this key. A
+    layout's first solve runs its first iteration eagerly and, where a
+    second follows, captures the graphs after it (span
+    ``slam:graph.capture``); a solve that stops after one iteration
+    captures nothing. The cache keeps the layout, the fixed mask and the
+    graphs' memory alive until another key's solve or ``release_graphs()``.
+    Returns a BAState whose tensors, and `costs`' entries, are copies of
+    their own."""
+    key = _Key(tuple(held), tuple(values) + tuple(
+        (x.dtype, x.device, tuple(x.shape))
+        for x in (poses0.R, poses0.t, points0)))
+    entry = _GRAPHS[0]
+    if entry is None or not entry.key.matches(key):
+        _GRAPHS[0] = entry = None       # the last layout's graphs go first
+        entry = _GRAPHS[0] = _LoopGraphs(key, make_steps(), poses0, points0,
+                                         xtol)
+    return entry.solve(poses0, points0, max_iters, lambda_init, costs)
 
 
 def _landmark_terms(dl, a, group, n_local):

@@ -29,19 +29,26 @@ import numpy as np
 import torch
 
 from slam_tricks_tpu_torch.ops.ba_assemble import (_IJ3, _IJ6, CameraIndex,
-                                                   layout_index,
+                                                   assemble_out, layout_index,
                                                    linearize_assemble)
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
 from slam_tricks_tpu_torch.residuals import robust
-from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed, psum,
+from slam_tricks_tpu_torch.solvers.common import (device_constant,
+                                                  device_index,
+                                                  first_camera_fixed, psum,
                                                   set_full_precision,
                                                   sum_table, table_sum)
-from slam_tricks_tpu_torch.solvers.schur import build_track_table, lm_loop
+from slam_tricks_tpu_torch.solvers.schur import (SchurSteps,
+                                                 build_track_table,
+                                                 lm_graphed, lm_loop)
 from slam_tricks_tpu_torch.utils.timer import annotate
 
+# index lists, indexed through ``common.device_index`` (their tensors on
+# the device, made once)
 _DIAG6 = [k for k, (i, j) in enumerate(_IJ6) if i == j]    # [0, 6, 11, 15, 18, 20]
 _DIAG3 = [k for k, (i, j) in enumerate(_IJ3) if i == j]    # [0, 3, 5]
 _SYM6 = [_IJ6.index((min(i, j), max(i, j))) for i in range(6) for j in range(6)]
+_EYE3 = [1.0, 0.0, 0.0, 1.0, 0.0, 1.0]   # the identity, upper triangle
 
 
 class SlotWork(NamedTuple):
@@ -165,7 +172,8 @@ def _quantities_sm(poses, points, work: SlotWork, loss=None, psum_axis=None):
 
 def _sym6_expand(flat):
     """(..., 21) upper-triangle columns -> (..., 6, 6) symmetric."""
-    return flat[..., _SYM6].reshape(flat.shape[:-1] + (6, 6))
+    return flat[..., device_index(_SYM6, flat.device)].reshape(
+        flat.shape[:-1] + (6, 6))
 
 
 def _inv3x3_flat(h):
@@ -187,12 +195,12 @@ def damp_hll(Hll, lam):
     diagonal (3, L)): + lam times the clamped diagonal; an empty landmark
     (no live slot) gets the identity, since its eps-damped zero block has
     det ~ (lam 1e-12)^3, which underflows f32 to an inf inverse."""
-    dll = torch.clamp_min(Hll[_DIAG3], 1e-12)
+    diag = device_index(_DIAG3, Hll.device)
+    dll = torch.clamp_min(Hll[diag], 1e-12)
     empty = (Hll[0] + Hll[3] + Hll[5]) <= 0.0
     damp = torch.zeros_like(Hll)
-    damp[_DIAG3] = lam * dll
-    eye3 = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=Hll.dtype,
-                        device=Hll.device)[:, None]
+    damp[diag] = lam * dll
+    eye3 = device_constant(_EYE3, Hll.dtype, Hll.device)[:, None]
     return torch.where(empty, eye3, Hll + damp), dll
 
 
@@ -211,16 +219,22 @@ def _chol3_flat(h):
 
 
 def reduced_camera_system(Hpp, gp, Hll, gl, W, lam, fixed_mask,
-                          work: SlotWork):
+                          work: SlotWork, replay=None):
     """The damped, gauge-fixed reduced camera system S dp = b from
     slot-major blocks. Returns (S (6C, 6C), b (6C,), Hll_inv (6 x (L,)),
     dpp (C, 6), dll (3, L)): the last three are the landmark inverse and the
-    Marquardt diagonals that the back-substitution and the LM step need."""
+    Marquardt diagonals that the back-substitution and the LM step need.
+    replay: a CUDA graph captured from a call with these same tensors
+    (``schur.lm_graphed``), replayed in place of the computation; its
+    outputs are returned."""
+    if replay is not None:
+        return replay()
     dtype, device = gp.dtype, gp.device
     C, L = work.n_cams, work.n_points
     K = work.mask.shape[0]
 
-    dpp = torch.clamp_min(Hpp[:, _DIAG6], 1e-12)                  # (C, 6)
+    dpp = torch.clamp_min(Hpp[:, device_index(_DIAG6, device)],
+                          1e-12)                                  # (C, 6)
     Hpp_d = _sym6_expand(Hpp) + torch.diag_embed(lam * dpp)
     Hll_d, dll = damp_hll(Hll, lam)
     Hll_inv = _inv3x3_flat(Hll_d)
@@ -296,6 +310,33 @@ def _solve_sm(Hpp, gp, Hll, gl, W, lam, fixed_mask, work: SlotWork):
     return dp, dl, dpp, dll.T
 
 
+def _steps(work: SlotWork, fixed_mask, loss):
+    """The pieces of an LM step that ``schur.lm_graphed`` runs apart."""
+    C = work.n_cams
+
+    def linearize(poses, points, out):
+        *blocks, cost = linearize_assemble(
+            poses.R.reshape(C, 9), poses.t, points, work.uv0, work.uv1,
+            work.w, work.cam_of_slot, work.cam_index, loss, out=out)
+        return tuple(blocks), cost
+
+    def system(blocks, lam, replay=None):
+        return reduced_camera_system(*blocks, lam, fixed_mask, work,
+                                     replay=replay)
+
+    def linear_solve(system, out):
+        return spd_solve(system[0], system[1], out=out).view(C, 6)
+
+    return SchurSteps(
+        linearize=linearize,
+        linearize_out=lambda: assemble_out(C, work.w, work.cam_index),
+        system=system, linear_solve=linear_solve,
+        solve_out=lambda: work.w.new_empty(6 * C),
+        back_substitute=lambda dp, blocks, system: back_substitute(
+            dp, blocks[4], system[2], blocks[3], work),
+        diagonals=lambda system: (system[3], system[4].T))
+
+
 def solve_ba_flat_sm(poses0, points0, work: SlotWork, *, fixed_mask=None,
                      max_iters=30, lambda_init=1e-4, xtol=1e-12, loss=None,
                      costs=None):
@@ -306,11 +347,24 @@ def solve_ba_flat_sm(poses0, points0, work: SlotWork, *, fixed_mask=None,
     bool (default: camera 0); lambda_init the first damping; the solve
     stops when an accepted step is shorter than xtol; loss a
     ``residuals.robust.Loss`` or None. The loop runs on the host over
-    device tensors and reads the stop flag once per iteration. If `costs`
-    is a list, the cost at the start and after each iteration is appended
-    to it (device scalars). Returns a BAState."""
+    device tensors and reads the stop flag once per iteration; on a CUDA
+    device each iteration replays CUDA graphs of the plain-torch work
+    between the kernels (``schur.lm_graphed``, captured on a layout's first
+    solve of more than one iteration), with the same bits; the graphs keep
+    `work` and `fixed_mask` alive until another layout's graphed solve or
+    ``schur.release_graphs()``. If `costs` is a list, the cost at the start
+    and after each iteration is appended to it (device scalars). Returns a
+    BAState."""
     robust.check(loss)
     set_full_precision()
+    if points0.is_cuda:
+        return lm_graphed(
+            poses0, points0, (work, fixed_mask), ("flat_sm", loss, xtol),
+            lambda: _steps(work, first_camera_fixed(work.n_cams,
+                                                    points0.device)
+                           if fixed_mask is None else fixed_mask, loss),
+            max_iters=max_iters, lambda_init=lambda_init, xtol=xtol,
+            costs=costs)
     if fixed_mask is None:
         fixed_mask = first_camera_fixed(work.n_cams, points0.device)
     return lm_loop(

@@ -34,7 +34,14 @@ checkpoint of CUDA tensors loads onto the card and onto the CPU, the same
 bits) and an example run on the card by default, its numbers within 5e-3
 relative of its --cpu run; the distributed banded and sharded solvers on
 two gloo ranks that share the card, the same bits on both ranks and
-within 1e-8 of the same solve on the CPU."""
+within 1e-8 of the same solve on the CPU; the graphed LM loop of paths A
+and B (``schur.lm_graphed``) against the eager ``schur.lm_loop`` from the
+same start, in f32 and f64: the same bits in the final state, cost,
+iterations and costs, returned tensors a later solve leaves alone, four
+graphs captured on a layout's first solve and none after (anew for
+another fixed mask or layout, none for a solve of one iteration, anew
+after ``schur.release_graphs()``), one memory pool for every layout's
+graphs, and one sync an iteration."""
 
 import numpy as np
 import pytest
@@ -1170,3 +1177,218 @@ def test_distributed_solver_on_two_ranks_on_cuda_matches_cpu(name, tmp_path):
     for a, b in zip(card[1:4], cpu[1:4]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-8)
     np.testing.assert_allclose(float(card[4]), float(cpu[4]), rtol=1e-7)
+
+
+# ---- the graphed LM loop (schur.lm_graphed) against the eager one ----
+
+def _graph_case(path, dtype, dev, n_cams=None):
+    """(scene, work, fixed, graphed(poses0, points0, costs=None, fixed=,
+    iters=8), eager(poses0, points0, costs, iters=8)): path A's solve (16
+    cameras) or path B's (a 32-camera trajectory), 8 LM iterations unless
+    `iters` says otherwise; the eager one is
+    ``schur.lm_loop`` over the same solver's steps, as the solver ran it
+    before its graphs existed."""
+    if path == "A":
+        sc = make_scene(n_per_wall=60, n_cams=n_cams or 16, seed=3,
+                        dtype=dtype, device=dev)
+        work = schur_flat_sm.build_slot_work(sc.obs, sc.n_cams, sc.n_points,
+                                             dtype=dtype)
+        fixed = perturb_scene(sc, seed=4)[2]
+
+        def graphed(p, x, costs=None, fixed=fixed, iters=8):
+            return schur_flat_sm.solve_ba_flat_sm(
+                p, x, work, fixed_mask=fixed, max_iters=iters, costs=costs)
+
+        def eager(p, x, costs, iters=8):
+            return schur.lm_loop(
+                p, x, lambda P, X: schur_flat_sm._quantities_sm(P, X, work),
+                lambda b, lam: schur_flat_sm._solve_sm(*b, lam, fixed, work),
+                max_iters=iters, costs=costs)
+    else:
+        sc = make_trajectory_scene(n_cams=n_cams or 32, n_points=600,
+                                   track_len=6, seed=71, pix_noise=1e-3,
+                                   dtype=dtype, device=dev)
+        work = banded_flat.build_banded_work(sc.obs, sc.n_cams, sc.n_points,
+                                             dtype=dtype)
+        fixed = perturb_scene(sc, seed=72)[2]
+
+        def graphed(p, x, costs=None, fixed=fixed, iters=8):
+            return banded_flat.solve_ba_banded(
+                p, x, work, fixed_mask=fixed, max_iters=iters, costs=costs)
+
+        def eager(p, x, costs, iters=8):
+            out = schur.lm_loop(
+                p, x[work.gather_idx],
+                lambda P, X: banded_flat._banded_quantities(P, X, work),
+                lambda b, lam: banded_flat._solve_banded(*b, lam, fixed,
+                                                         work),
+                max_iters=iters, costs=costs)
+            return out._replace(points=banded_flat.scatter_slots(
+                x, out.points, work.scatter_idx))
+    return sc, work, fixed, graphed, eager
+
+
+def _start(path, sc, seed):
+    if path == "A":
+        return perturb_scene(sc, seed=seed)[:2]
+    return perturb_scene(sc, pose_rot_noise=0.002, pose_trans_noise=0.01,
+                         point_noise=0.01, seed=seed)[:2]
+
+
+def _state(out):
+    return (out.poses.R, out.poses.t, out.points, out.cost, out.lam, out.nu)
+
+
+def _counters():
+    return (schur.GRAPH_CAPTURES, schur.GRAPH_REPLAYS,
+            schur.EAGER_ITERATIONS)
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graphed_solve_has_the_eager_loops_bits(path, dtype):
+    """The capturing solve and a warm one give the eager loop's final
+    state, cost, iterations and costs, bit for bit."""
+    dev = require_cuda()
+    sc, work, fixed, graphed, eager = _graph_case(path, dtype, dev)
+    poses0, points0 = _start(path, sc, 4 if path == "A" else 72)
+    ref_costs = []
+    ref = eager(poses0, points0, ref_costs)
+    for _ in range(2):
+        costs = []
+        out = graphed(poses0, points0, costs)
+        assert (out.it, out.done) == (ref.it, ref.done) and out.it >= 2
+        for a, b in zip(_state(out), _state(ref)):
+            assert torch.equal(a, b)
+        assert len(costs) == len(ref_costs) == out.it + 1
+        assert all(torch.equal(a, b) for a, b in zip(costs, ref_costs))
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_graphed_solve_outputs_are_their_own(path):
+    """A second solve from another start leaves the first one's returned
+    tensors and costs as they were."""
+    dev = require_cuda()
+    sc, work, fixed, graphed, _ = _graph_case(path, torch.float32, dev)
+    costs = []
+    first = graphed(*_start(path, sc, 5), costs)
+    kept = [t.clone() for t in _state(first) + tuple(costs)]
+    second = graphed(*_start(path, sc, 6))
+    assert not torch.equal(second.poses.t, first.poses.t)
+    for a, b in zip(_state(first) + tuple(costs), kept):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_graphed_solve_captures_once_a_layout(path):
+    """Four graphs on a layout's first solve, none on the next; another
+    fixed mask or another layout captures anew."""
+    dev = require_cuda()
+    sc, work, fixed, graphed, _ = _graph_case(path, torch.float32, dev)
+    start = _start(path, sc, 7)
+    c0 = _counters()
+    first = graphed(*start)
+    c1 = _counters()
+    assert c1[0] - c0[0] == 4
+    assert c1[1] - c0[1] == 4 * (first.it - 1) and c1[2] - c0[2] == 1
+    out = graphed(*start)
+    c2 = _counters()
+    assert (c2[0] - c1[0], c2[1] - c1[1], c2[2] - c1[2]) == (0, 4 * out.it, 0)
+    other = fixed.clone()
+    other[-1] = True
+    graphed(*start, fixed=other)
+    c3 = _counters()
+    assert c3[0] - c2[0] == 4
+    sc2, _, fixed2, graphed2, _ = _graph_case(path, torch.float32, dev,
+                                              n_cams=12 if path == "A" else 24)
+    graphed2(*_start(path, sc2, 8))
+    assert _counters()[0] - c3[0] == 4
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_graphed_solve_of_one_iteration_captures_nothing(path):
+    """A layout's solve that stops after one iteration runs it eagerly, the
+    eager loop's bits, and captures nothing; the layout's next solve of
+    more iterations captures its four graphs."""
+    dev = require_cuda()
+    sc, work, fixed, graphed, eager = _graph_case(path, torch.float32, dev)
+    start = _start(path, sc, 10)
+    schur.release_graphs()
+    c0 = _counters()
+    ref_costs, costs = [], []
+    ref = eager(*start, ref_costs, iters=1)
+    out = graphed(*start, costs, iters=1)
+    c1 = _counters()
+    assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (0, 0, 2)
+    assert (out.it, out.done) == (ref.it, ref.done) == (1, False)
+    for a, b in zip(_state(out) + tuple(costs), _state(ref) + tuple(ref_costs)):
+        assert torch.equal(a, b)
+    more = graphed(*start)
+    c2 = _counters()
+    assert more.it >= 2 and c2[0] - c1[0] == 4 and c2[2] - c1[2] == 1
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_release_graphs_drops_the_layout(path):
+    """``schur.release_graphs()`` frees the cache's entry, which holds the
+    layout, and the layout's next solve captures anew."""
+    import gc
+    import weakref
+
+    dev = require_cuda()
+    sc, work, fixed, graphed, _ = _graph_case(path, torch.float32, dev)
+    start = _start(path, sc, 11)
+    graphed(*start)
+    entry = weakref.ref(schur._GRAPHS[0])
+    assert entry().key.held[0] is work
+    schur.release_graphs()
+    gc.collect()
+    assert schur._GRAPHS == [None] and entry() is None
+    c0 = _counters()
+    graphed(*start)
+    assert _counters()[0] - c0[0] == 4
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_new_layouts_reuse_one_graph_pool(path):
+    """A new layout every solve, each evicting the last one's graphs,
+    reserves no more device memory after the tenth than after the fifth:
+    every layout's graphs share one pool."""
+    dev = require_cuda()
+    sc, _, fixed, _, _ = _graph_case(path, torch.float32, dev)
+    start = _start(path, sc, 12)
+    build, solve = ((schur_flat_sm.build_slot_work,
+                     schur_flat_sm.solve_ba_flat_sm) if path == "A" else
+                    (banded_flat.build_banded_work,
+                     banded_flat.solve_ba_banded))
+    c0, reserved = _counters(), []
+    for _ in range(10):
+        work = build(sc.obs, sc.n_cams, sc.n_points, dtype=torch.float32)
+        solve(*start, work, fixed_mask=fixed, max_iters=4)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert _counters()[0] - c0[0] == 40
+    assert reserved[-1] <= reserved[4], reserved
+
+
+@pytest.mark.parametrize("path", ["A", "B"])
+def test_graphed_solve_syncs_once_an_iteration(path):
+    """A warm graphed solve waits for the device once an iteration (the
+    stop flag), and path B twice more a solve (``scatter_slots``' mask)."""
+    import warnings
+
+    dev = require_cuda()
+    sc, work, fixed, graphed, _ = _graph_case(path, torch.float32, dev)
+    start = _start(path, sc, 9)
+    graphed(*start)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = graphed(*start)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == out.it + (0 if path == "A" else 2), [
+        str(w.message) for w in syncs]
