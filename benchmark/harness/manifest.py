@@ -17,9 +17,15 @@ metric sits in a file of its own, found by the name the manifest gives:
 - ``limits/<workload>.json``: the limits of the numbers that decide
   ``correct`` in that cell.
 
-An end-to-end metric ``<quantity>.<part>`` takes the value of the
-quantity that the traffic kind's loop measures: a quantity split by cell,
-so that each part has a bound of its own.
+An end-to-end metric is a quantity that a traffic kind's loop measures
+(``iter_ms``, ``solve_ms_p95``), named by that quantity alone and with no
+``workloads`` list: every cell whose kind declares it in ``QUANTITIES``
+reports it, and every cell reports ``setup_s``. The driver compares each
+cell's reading on its own, so a new cell adds no end-to-end metric: it is
+an entry appended to ``workloads``, and its per-layer metrics are new
+``<quantity>.<cell>`` entries appended to ``per_layer``, each with its
+``workloads`` list. A metric that has a ``workloads`` list is reported by
+the cells it names.
 """
 
 import importlib
@@ -41,12 +47,16 @@ def _read_json(path):
         return json.load(f)
 
 
-def _for_cell(metric, workload, e2e_names):
+def _for_cell(metric, workload, reported):
+    """Whether a cell reports a metric: one with a ``workloads`` list where
+    it names the cell; an end-to-end one without, where its name is in
+    `reported` (``setup_s`` and the kind's QUANTITIES); a per-layer one
+    without, where the end-to-end metric it moves is (`reported`: the
+    cell's end-to-end names)."""
     cells = metric.get("workloads")
     if cells is not None:
         return workload in cells
-    moves = metric.get("moves")
-    return moves is None or moves in e2e_names
+    return metric.get("moves", metric["name"]) in reported
 
 
 def stem(metric):
@@ -90,8 +100,9 @@ class Cell:
         self.kind = importlib.import_module(
             f"benchmark.kinds.{self.kind_name}")
         self.solver_name = self.config["solvers"][self.kind_name]
+        measured = {"setup_s", *self.kind.QUANTITIES}
         self.e2e = [e for e in m["end_to_end"]
-                    if _for_cell(e, workload, None)]
+                    if _for_cell(e, workload, measured)]
         e2e_names = {e["name"] for e in self.e2e}
         self.per_layer = [p for p in m["per_layer"]
                           if _for_cell(p, workload, e2e_names)]

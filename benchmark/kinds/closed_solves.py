@@ -24,6 +24,7 @@ from benchmark.harness import loops, scenes, stats
 from benchmark.reference import lm_ba
 
 UNIT = "solves"
+QUANTITIES = ("iter_ms", "solve_ms_p95")
 NUMBERS = ("step_cost_gap", "final_cost")
 
 

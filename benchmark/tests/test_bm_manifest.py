@@ -96,6 +96,54 @@ def test_every_cell_reports_setup_another_e2e_and_a_layer(m):
         assert cell.per_layer, w["name"]
 
 
+def test_no_end_to_end_metric_is_split_by_cell(m):
+    """An end-to-end metric is a quantity every cell of a kind reports, so
+    that a new cell needs no end-to-end entry of its own."""
+    for e in m["end_to_end"]:
+        assert "workloads" not in e, e["name"]
+        assert manifest.stem(e["name"]) == e["name"], e["name"]
+
+
+def test_a_cell_reports_what_its_kind_measures():
+    e2e = [{"name": n} for n in ("iter_ms", "solve_ms_p95", "arrival_ms",
+                                 "setup_s")]
+    measured = {"setup_s", "iter_ms", "solve_ms_p95"}
+    assert [e["name"] for e in e2e
+            if manifest._for_cell(e, "a", measured)] == [
+        "iter_ms", "solve_ms_p95", "setup_s"]
+    listed = {"name": "arrival_ms", "workloads": ["a"]}
+    assert manifest._for_cell(listed, "a", measured)
+    assert not manifest._for_cell(listed, "b", measured)
+    layer = {"name": "x.a", "moves": "arrival_ms"}
+    assert not manifest._for_cell(layer, "a", measured)
+    assert manifest._for_cell(layer, "a", measured | {"arrival_ms"})
+
+
+def test_a_cell_appended_to_a_copy_needs_no_other_edit(m, tmp_path):
+    """A cell appended to a copy of the manifest, under a new name on an
+    existing configuration and traffic, reports the end-to-end metrics of
+    its kind's quantities and setup_s, with no other entry changed."""
+    for w in m["workloads"]:
+        copy = json.loads(json.dumps(m))
+        new = dict(w, name=f"{w['name']}-again")
+        copy["workloads"].append(new)
+        (tmp_path / "BENCHMARK.json").write_text(json.dumps(copy))
+        for c in copy["configs"]:
+            dst = tmp_path / c["file"]
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            dst.write_bytes((ROOT / c["file"]).read_bytes())
+        cell = manifest.Cell(new["name"], root=tmp_path)
+        names = {e["name"] for e in cell.e2e}
+        assert names == {"setup_s", *cell.kind.QUANTITIES}, new["name"]
+        if cell.kind_name == "closed_solves":
+            assert names == {"iter_ms", "solve_ms_p95", "setup_s"}
+        assert names == {e["name"] for e in manifest.Cell(w["name"]).e2e}
+        assert cell.per_layer == []
+        assert copy["workloads"][:-1] == m["workloads"]
+        assert {k: v for k, v in copy.items() if k != "workloads"} == {
+            k: v for k, v in m.items() if k != "workloads"}
+
+
 def test_every_layer_metric_moves_an_e2e_metric_its_cells_report(m):
     for p in m["per_layer"]:
         assert p["workloads"], p["name"]
@@ -124,8 +172,8 @@ def test_every_traffic_kind_and_scene_family_is_found(m):
     from benchmark.harness import scenes
     for w in m["workloads"]:
         cell = manifest.Cell(w["name"])
-        for attr in ("Loop", "UNIT", "NUMBERS", "outputs", "numbers",
-                     "FAULTS"):
+        for attr in ("Loop", "UNIT", "QUANTITIES", "NUMBERS", "outputs",
+                     "numbers", "FAULTS"):
             assert hasattr(cell.kind, attr), (cell.kind_name, attr)
         kind = cell.config["scene"]["kind"]
         assert hasattr(scenes.load("scenes", kind), "make"), kind
