@@ -122,6 +122,15 @@ through the kernels, each with every launch count set to 0 just before it:
   single-run grid and its landmark-local flat grid of dist_pcg, the
   cameras without a slot exact zeros) and at a pad-heavy slice,
   spd_solve at dist_sharded's replicated system;
+- BAL, Dubrovnik-356's generated photo collection at the dubrovnik-solve
+  cell's configuration and start (benchmark/configs/bal_dubrovnik_356.json:
+  356 cameras with f, k1, k2, 226,730 landmarks, 1,255,268 observations in
+  power-of-two track-length buckets, float32): ba_assemble's 9-wide
+  kernel over every bucket grid against the grids' plain version, two
+  launches bitwise; spd_solve at n = 3,204 on the start's Jacobi-scaled
+  reduced camera system against plain and the library; schur_bal.solve_bal,
+  10 LM iterations through the CUDA graphs, under the cell's gate, and
+  again, which must give the same bits;
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
   8 mod 16 bytes, odd counts below one block, n = 0, 0, 1 and 8 steps,
@@ -2626,6 +2635,140 @@ def dist_paths(dev, scenes, singles, check_assemble, check_spd, phases):
     return {"launches": launches, "assemble": asm, "spd": spd}
 
 
+BAL_CONFIG = "benchmark/configs/bal_dubrovnik_356.json"    # the cell's
+BAL_TRAFFIC = "benchmark/traffic/closed_dubrovnik_it10.json"  # and its start
+BAL_SEED = 7                # the start's draws
+BAL_LAM = 1e-4              # the damping of the checked reduced system
+
+
+def bal_paths(dev, run_phase, check_spd, phases):
+    """Path BAL: the dubrovnik-solve cell's generated scene and start on
+    schur_bal's bucketed layout, float32. ba_assemble's 9-wide kernel over
+    every bucket grid against the grids' plain version at
+    ASSEMBLE_REL_TOL an output, two launches bitwise, timed against its
+    bound; spd_solve at n = 3,204 on the start's reduced camera system
+    (check_spd); solve_bal's 10 iterations with every launch count set to
+    0 just before (run_phase), under the cell's gate, and again, which
+    must give the same bits. Returns {"assemble": {...}, "spd": {...}}."""
+    import numpy as np
+    import torch
+
+    from benchmark.harness import scenes
+    from benchmark.scenes import bal_city
+    from slam_tricks_tpu_torch.manifolds import se3
+    from slam_tricks_tpu_torch.ops import ba_assemble
+    from slam_tricks_tpu_torch.residuals import bal
+    from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
+    from slam_tricks_tpu_torch.solvers import schur, schur_bal
+
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    cfg = json.loads((ROOT / BAL_CONFIG).read_text())
+    traffic = json.loads((ROOT / BAL_TRAFFIC).read_text())
+    spec = {k: v for k, v in cfg["scene"].items() if k != "kind"}
+    sc = bal_city.make(**spec)
+    C, L = sc.n_cams, sc.n_points
+    fixed = torch.as_tensor(scenes.fixed_mask(C, cfg["gauge"]), device=dev)
+    R, t, X = scenes.perturbed_start(
+        torch.as_tensor(sc.R, dtype=f64, device=dev),
+        torch.as_tensor(sc.t, dtype=f64, device=dev),
+        torch.as_tensor(sc.points, dtype=f64, device=dev), fixed,
+        traffic["perturb"], BAL_SEED)
+    lv = traffic["perturb_intrinsics"]
+    K = torch.as_tensor(bal_city.intrinsics(**spec), dtype=f64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(BAL_SEED + 1)
+    dK = torch.randn(K.shape, generator=gen, dtype=f64, device=dev) * (
+        torch.tensor([lv["f"], lv["k1"], lv["k2"]], dtype=f64, device=dev)
+        * (~fixed)[:, None])
+    K = torch.stack([K[:, 0] * (1.0 + dK[:, 0]), K[:, 1] + dK[:, 1],
+                     K[:, 2] + dK[:, 2]], dim=1)
+    R, t, K, X = (a.to(f32).contiguous() for a in (R, t, K, X))
+    obs = BAObservations(
+        cam_idx=torch.as_tensor(sc.cam.astype(np.int32), device=dev),
+        lm_idx=torch.as_tensor(sc.lm.astype(np.int32), device=dev),
+        uv=torch.as_tensor(sc.uv, dtype=f32, device=dev),
+        weight=torch.as_tensor(sc.w, dtype=f32, device=dev))
+    work = schur_bal.build_bal_work(obs, C, L, dtype=f32)
+    grids = work.grids
+    n_obs = int((obs.weight > 0).sum())
+    _log("path BAL", f"C={C} L={L} observations={n_obs}: "
+                     f"{len(grids)} buckets (K {[g.w.shape[0] for g in grids]}"
+                     f"), {schur_bal.LIVE_SLOTS} live of "
+                     f"{schur_bal.ALLOCATED_SLOTS} slots, "
+                     f"{schur_bal.LIVE_PAIRS} within-track pairs; scene and "
+                     f"layout {time.perf_counter() - t0:.1f} s")
+
+    # ---- the 9-wide kernel over the bucket grids, against plain ----
+    args = (R.reshape(C, 9), t, K, X[work.perm])
+    got = ba_assemble.linearize_assemble_grids(*args, grids)
+    again = ba_assemble.linearize_assemble_grids(*args, grids)
+    ref = ba_assemble.linearize_assemble_grids_plain(*args, grids)
+    torch.cuda.synchronize()
+    names = ("Hpp", "gp", "Hll", "gl", *(f"W[{i}]" for i in
+                                         range(len(grids))), "cost")
+    flat = lambda o: (*o[:4], *o[4], o[5])  # noqa: E731
+    err = 0.0
+    for name, a, b, a2 in zip(names, flat(got), flat(ref), flat(again)):
+        rel = _rel(a, b)
+        err = max(err, float((a - b).abs().max()))
+        if not rel <= ASSEMBLE_REL_TOL:
+            raise AssertionError(f"ba_assemble path BAL {name}: rel err "
+                                 f"{rel} > {ASSEMBLE_REL_TOL}")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"ba_assemble path BAL {name}: two "
+                                 f"launches differ")
+        if name[0] != "W" or name == "W[0]" or name == names[-2]:
+            _log("ba_assemble", f"path BAL {name} {tuple(a.shape)} max rel "
+                                f"err {rel:.3e}")
+    _log("ba_assemble", f"path BAL: every output of {len(grids)} grids "
+                        f"within {ASSEMBLE_REL_TOL} of plain, two launches "
+                        f"bitwise equal")
+    ms, plain_ms, device_ms = _paired_ms(
+        lambda: ba_assemble.linearize_assemble_grids(*args, grids),
+        lambda: ba_assemble.linearize_assemble_grids_plain(*args, grids))
+    bound_ms, bound_by = _bound(
+        _nbytes(*args, *(a for g in grids
+                         for a in (g.uv0, g.uv1, g.w, g.cam_of_slot)),
+                *flat(got)), n_obs * ba_assemble.FLOPS_PER_SLOT9)
+    _log("ba_assemble", f"path BAL: kernel {ms:.4f} ms a call "
+                        f"({device_ms:.4f} ms on the card alone), plain "
+                        f"torch {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                        f"({bound_by})")
+    k1 = {"err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "grids": len(grids),
+          "K": [g.w.shape[0] for g in grids], "live_slots": n_obs,
+          "slots": schur_bal.ALLOCATED_SLOTS}
+    del got, again, ref
+
+    # ---- spd_solve at n = 3,204 on the start's reduced camera system ----
+    blocks, _ = schur_bal._quantities(bal.BALCameras(R, t, K),
+                                      X[work.perm], work)
+    system = schur_bal.reduced_camera_system(
+        *blocks[:4], blocks[4:], torch.tensor(BAL_LAM, device=dev), fixed,
+        work)
+    k2 = check_spd(system[0], system[1], "path BAL")
+    del blocks, system
+
+    # ---- solve_bal through the CUDA graphs, twice ----
+    schur.release_graphs()
+    solve = lambda costs=None: schur_bal.solve_bal(  # noqa: E731
+        se3.SE3(R, t), K, X, work, fixed_mask=fixed,
+        max_iters=traffic["lm_iters"], lambda_init=cfg["lambda_init"],
+        costs=costs)
+    out, cf, launches, ms_it = run_phase("path BAL", solve)
+    _check_costs(cf, traffic["gate"]["final_cost"], "path BAL")
+    if (launches["ba_assemble"] < len(grids) * out.it
+            or launches["spd_solve"] < 2 * out.it):
+        raise AssertionError(f"path BAL skipped a kernel: {launches} in "
+                             f"{out.it} iterations of {len(grids)} grids")
+    out2, _, launches2, ms_it2 = run_phase("path BAL again", solve)
+    check_same_bits(out, out2, "path BAL")
+    phases["BAL"] = {"ms_per_lm_iter": ms_it, "ms_per_lm_iter_again": ms_it2,
+                     "iters": out.it, "final_cost": cf[-1],
+                     "launches": launches, "launches_again": launches2}
+    return {"assemble": k1, "spd": {"path_BAL": k2}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, default=None,
@@ -3692,6 +3835,9 @@ def main():
         check_assemble, check_spd, phases)
     del lobs
 
+    # ---- 11q. path BAL: the dubrovnik-solve cell's 9-wide cameras ----
+    bal_out = bal_paths(dev, run_phase, check_spd, phases)
+
     # ---- 12. kernel 4 at its edges, against plain ----
     intr = camera.Intrinsics(458.654, 457.296, 367.215, 248.375)
     dist = camera.DistCoeffs(-0.28340811, 0.07395907, 0.0, 0.00019359,
@@ -3778,7 +3924,8 @@ def main():
                             geo["assemble"]["path_X"]["err"],
                             *(k["err"] for k in ex["assemble"].values()),
                             *(k["err"]
-                              for k in dist_out["assemble"].values())),
+                              for k in dist_out["assemble"].values()),
+                            bal_out["assemble"]["err"]),
          "loss_max_abs_err": loss_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "device_ms": k1["device_ms"],
@@ -3805,7 +3952,8 @@ def main():
          **{f"path_w_{name}": {key: k[key] for key in k1_keys}
             for name, k in k1w.items()},
          "path_x": geo["assemble"]["path_X"],
-         **ex["assemble"], "dist": dist_out["assemble"]},
+         **ex["assemble"], "dist": dist_out["assemble"],
+         "path_bal": bal_out["assemble"]},
         {"name": "spd_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/spd_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_chol.py:32",
@@ -3817,14 +3965,16 @@ def main():
                                       *vi["spd"].values(),
                                       *geo["spd"].values(),
                                       *ex["spd"].values(),
-                                      *dist_out["spd"].values()))),
+                                      *dist_out["spd"].values(),
+                                      *bal_out["spd"].values()))),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "device_ms": k2_device_ms,
          "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "n6144_path_d": k2_big["D"], "n6144_path_g": k2_big["G"],
          **{f"path_w_{name}": k for name, k in k2w.items()},
          **{f"path_{name}": k for name, k in k2_pg.items()},
-         **vi["spd"], **geo["spd"], **ex["spd"], **dist_out["spd"]},
+         **vi["spd"], **geo["spd"], **ex["spd"], **dist_out["spd"],
+         **bal_out["spd"]},
         {"name": "tridiag_solve", "route": "cuda",
          "source": "slam_tricks_tpu_torch/csrc/tridiag_solve.cu",
          "replaces": "slam_tricks_tpu/ops/pallas_tridiag.py:28",

@@ -29,10 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# ba_assemble: R_flat, t, points, uv0, uv1, w, cam_of_slot, slots,
-#              seg_cam, seg_start, n_seg, C, K, L, loss kind, loss param,
-#              its square, Hpp, gp, Hll, gl, W, cost, scratch, device, stream
-_BA = [_P] * 10 + [_I] * 5 + [_D, _D] + [_P] * 7 + [_I, _P]
+# ba_assemble (width 6) and ba_assemble9: R_flat, t, intr (NULL at width
+#   6), points, uv0, uv1, w, cam_of_slot, slots, seg_cam, seg_start, n_seg,
+#   C, K, L, landmark row stride, accumulate, loss kind, loss param, its
+#   square, Hpp, gp, Hll, gl, W, cost, scratch, device, stream
+_BA = [_P] * 11 + [_I] * 7 + [_D, _D] + [_P] * 7 + [_I, _P]
 # spd_solve: S, b, A (scratch), yz (scratch), x, flags (scratch), n, stream
 _SPD = [_P] * 6 + [_I, _P]
 # tridiag_solve: D, E, r, store, lev (scratch), work (tile scratch or NULL),
@@ -48,6 +49,7 @@ def _undistort(scalar):
 
 SIGNATURES = {
     "ba_assemble_f32": _BA, "ba_assemble_f64": _BA,
+    "ba_assemble9_f32": _BA, "ba_assemble9_f64": _BA,
     "spd_solve_f32": _SPD, "spd_solve_f64": _SPD,
     "tridiag_solve_f32": _TRI, "tridiag_solve_f64": _TRI,
     "undistort_f32": _undistort(ctypes.c_float),

@@ -78,7 +78,7 @@ def make_ba_solver_landmark_local(group=None, *, max_iters=30,
             Hll_inv = schur._inv3x3(Hll_d)
 
             Y = torch.einsum("nij,njk->nik", W_obs, Hll_inv[lm])
-            M_p = schur._paired_S_mass(Y, W_obs, pr, segs, C)
+            M_p = schur._paired_S_mass(Y, W_obs, segs, C)
             u = torch.einsum("lij,lj->li", Hll_inv, gl)
             b_lm_p = table_sum(torch.einsum("nij,nj->in", W_obs, u[lm]),
                                tables.cam)

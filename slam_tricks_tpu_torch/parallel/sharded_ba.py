@@ -111,7 +111,7 @@ def make_ba_solver(group=None, *, max_iters=30, lambda_init=1e-4,
             # (track locality puts every pair on one rank) and the rhs's
             # landmark part over its rows
             Y = torch.einsum("nij,njk->nik", W_obs, Hll_inv[lm])
-            M_p = schur._paired_S_mass(Y, W_obs, pr, segs, C)
+            M_p = schur._paired_S_mass(Y, W_obs, segs, C)
             u = torch.einsum("lij,lj->li", Hll_inv, gl)
             b_lm_p = table_sum(torch.einsum("nij,nj->in", W_obs, u[lm]),
                                tables.cam)

@@ -1,7 +1,9 @@
-"""Residual layer: camera models, robust losses, the pose-graph factors,
+"""Residual layer: camera models (BAL's 9-parameter camera in ``bal``),
+robust losses, the pose-graph factors,
 reprojection, ICP, epipolar, calibration and the small fit residuals."""
 
 from slam_tricks_tpu_torch.residuals import (  # noqa: F401
+    bal,
     calib,
     camera,
     epipolar,

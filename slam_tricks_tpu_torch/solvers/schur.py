@@ -20,9 +20,14 @@ bits on every run, where ``index_add_`` sums by float atomics; the JAX
 package's ``segment_sum`` and one-hot products compute the same sums.
 
 Gauge: fixed cameras get identity rows and columns in S. Tangent per
-camera: [omega, dt] (SO(3) x R^3), poses stored as T_cw.
+camera: [omega, dt] (SO(3) x R^3), poses stored as T_cw. The LM loops
+(``lm_loop``, ``lm_graphed``) also carry BAL's cameras
+(``residuals.bal.BALCameras``: the pose and its focal length and two
+distortion terms, tangent [omega, dt, df, dk1, dk2], the intrinsics
+retracted additively) wherever a solver passes them in the pose's place.
 """
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -33,7 +38,7 @@ from slam_tricks_tpu_torch.manifolds import se3, so3
 from slam_tricks_tpu_torch.ops.smallchol import (cholesky_small,
                                                  solve_lower_small)
 from slam_tricks_tpu_torch.ops.spd_solve import spd_solve
-from slam_tricks_tpu_torch.residuals import robust
+from slam_tricks_tpu_torch.residuals import bal, robust
 from slam_tricks_tpu_torch.residuals.reprojection import \
     reproject_normalized_jacobians
 from slam_tricks_tpu_torch.solvers.common import (first_camera_fixed, psum,
@@ -104,7 +109,11 @@ def lm_accept(cost_old, cost_try, lam, nu, pred, bad, lam_min=1e-12):
 
 
 def _retract_state(poses, points, dp, dl):
-    """The step on SO(3) x R^3: R exp(omega), t + dt, points + dl."""
+    """The step on SO(3) x R^3: R exp(omega), t + dt, points + dl; BAL's
+    cameras (``residuals.bal.BALCameras``) also f + df, k1 + dk1,
+    k2 + dk2."""
+    if isinstance(poses, bal.BALCameras):
+        return bal.retract(poses, dp), points + dl
     return (se3.SE3(so3.retract(poses.R, dp[:, :3]), poses.t + dp[:, 3:]),
             points + dl)
 
@@ -166,6 +175,8 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
     in the solver's layout that starts (Hpp, gp, Hll, gl (3, L), ...);
     solve(blocks, lam) -> (dp (C, 6), dl (L, 3), diag_pp (C, 6),
     diag_ll (L, 3)). Steps retract on SO(3) x R^3 (tangent [omega, dt]);
+    poses may be BAL's cameras, with 9-wide dp and diag_pp
+    (``_retract_state``);
     the predicted reduction uses the Marquardt diagonals and the gradients
     grads(blocks) -> (gp (C, 6), gl (L, 3)), by default (blocks[1],
     blocks[3].T). lambda_init is the first damping; the loop stops when an
@@ -224,10 +235,10 @@ def lm_loop(poses0, points0, quantities, solve, *, max_iters,
                     cost, cost_try, lam, nu, dp_s, dl_s, diag_pp, diag_ll,
                     gp, gl, bad, xtol=xtol, gtol=gtol, psum_axis=psum_axis,
                     n_local=n_local)
-                R, t, points, cost = lm_select(
-                    accept, (poses_try.R, poses_try.t, points_try, cost_try),
-                    (poses.R, poses.t, points, cost))
-                poses = se3.SE3(R, t)
+                *cams, points, cost = lm_select(
+                    accept, (*poses_try, points_try, cost_try),
+                    (*poses, points, cost))
+                poses = type(poses)(*cams)
                 blocks = lm_select(accept, blocks_try, blocks)
             if callback is not None:
                 callback(it, cost, lam)
@@ -260,6 +271,12 @@ class SchurSteps(NamedTuple):
     diagonals: Callable         # system -> (diag_pp (C, 6), diag_ll (L, 3))
     keep: tuple = ()            # tensors the segments read from a bounded
     #                             cache: the graphs read them by address
+    system_stages: tuple = ()   # the reduced system in stages, each
+    #                             stage(blocks, lam, done) -> a tuple of
+    #                             tensors (done: the earlier stages'
+    #                             results), captured as a graph each;
+    #                             system then gets the tuple of their graphs
+    #                             as `replay`. Empty: system is one graph
 
 
 class _Key(NamedTuple):
@@ -325,14 +342,17 @@ class _Graph:
 class _LoopGraphs:
     """One layout's graphed LM iteration: the static tensors that hold the
     state, the trial and the kernels' results, and, once captured, the four
-    segments' graphs (reduced system, back-substitution, retract, accept)."""
+    segments' graphs (reduced system, back-substitution, retract, accept;
+    the reduced system's a tuple of graphs where the steps give it in
+    stages)."""
 
     def __init__(self, key, steps, poses0, points0, xtol):
         self.key, self.steps, self.xtol = key, steps, xtol
         # each of the caller's dtype and device: a mismatch raises in the
-        # kernel's wrapper, as in lm_loop, and is not converted here
-        self.R = poses0.R.new_empty(poses0.R.shape)
-        self.t = poses0.t.new_empty(poses0.t.shape)
+        # kernel's wrapper, as in lm_loop, and is not converted here; the
+        # cameras' tensors (R, t, and BAL's intrinsics) in their type's order
+        self.kind = type(poses0)
+        self.cams = tuple(x.new_empty(x.shape) for x in poses0)
         self.X = points0.new_empty(points0.shape)
         self.lam = points0.new_empty(())
         self.nu = points0.new_empty(())
@@ -349,8 +369,11 @@ class _LoopGraphs:
     def _back_substitute(self):
         return self.steps.back_substitute(self.dp, self.blocks, self.system)
 
+    def _poses(self):
+        return self.kind(*self.cams)
+
     def _retract(self):
-        return lm_retract(se3.SE3(self.R, self.t), self.X, self.dp, self.dl)
+        return lm_retract(self._poses(), self.X, self.dp, self.dl)
 
     def _accept(self):
         bad, dp_s, dl_s, poses_try, points_try = self.trial
@@ -358,9 +381,9 @@ class _LoopGraphs:
         accept, lam, nu, stop = lm_decide(
             self.cost, self.cost_try, self.lam, self.nu, dp_s, dl_s, diag_pp,
             diag_ll, self.blocks[1], self.blocks[3].T, bad, xtol=self.xtol)
-        lm_select(accept, (poses_try.R, poses_try.t, points_try,
+        lm_select(accept, (*poses_try, points_try,
                            self.cost_try) + tuple(self.blocks_try),
-                  (self.R, self.t, self.X, self.cost) + tuple(self.blocks),
+                  (*self.cams, self.X, self.cost) + tuple(self.blocks),
                   inplace=True)
         self.lam.copy_(lam)
         self.nu.copy_(nu)
@@ -399,29 +422,44 @@ class _LoopGraphs:
         EAGER_ITERATIONS += 1
         return stop
 
+    def _capture_stages(self):
+        """The reduced system's stages, a graph each, each reading the
+        outputs of the ones before: (their graphs, the last one's
+        output)."""
+        graphs, done = [], ()
+        for stage in self.steps.system_stages:
+            graphs.append(_Graph(functools.partial(stage, self.blocks,
+                                                   self.lam, done),
+                                 self.pool, self.side))
+            done += (graphs[-1].out,)
+        return tuple(graphs), done[-1]
+
     def _capture(self):
         """The four segments, in order, into graphs on the device's pool:
         each captured output stands where the next segment reads it."""
         with annotate("slam:graph.capture"):
             torch.cuda.synchronize(self.X.device)
             graphs = []
+            if self.steps.system_stages:
+                staged, self.system = self._capture_stages()
+                graphs.append(staged)
             for fn, name in ((self._system, "system"),
                              (self._back_substitute, "dl"),
                              (self._retract, "trial"),
-                             (self._accept, "stop")):
+                             (self._accept, "stop"))[len(graphs):]:
                 graphs.append(_Graph(fn, self.pool, self.side))
                 setattr(self, name, graphs[-1].out)
             self.graphs = graphs
 
     def solve(self, poses0, points0, max_iters, lambda_init, costs):
-        self.R.copy_(poses0.R)
-        self.t.copy_(poses0.t)
+        for c, x in zip(self.cams, poses0):
+            c.copy_(x)
         self.X.copy_(points0)
         self.lam.fill_(lambda_init)
         self.nu.fill_(2.0)
         with annotate("slam:lm.linearize"):
             self.blocks, self.cost = self.steps.linearize(
-                se3.SE3(self.R, self.t), self.X, self.state_out)
+                self._poses(), self.X, self.state_out)
         if costs is not None:
             costs.append(self.cost.clone())
         it, done = 0, False
@@ -437,7 +475,7 @@ class _LoopGraphs:
             if self.graphs is None and not done and it < max_iters:
                 self._capture()     # only where a replay follows
         # values of their own: the next solve overwrites the static tensors
-        return BAState(poses=se3.SE3(self.R.clone(), self.t.clone()),
+        return BAState(poses=self.kind(*(c.clone() for c in self.cams)),
                        points=self.X.clone(), cost=self.cost.clone(),
                        lam=self.lam.clone(), nu=self.nu.clone(), it=it,
                        done=done)
@@ -477,8 +515,7 @@ def lm_graphed(poses0, points0, held, values, make_steps, *, max_iters,
     Returns a BAState whose tensors, and `costs`' entries, are copies of
     their own."""
     key = _Key(tuple(held), tuple(values) + tuple(
-        (x.dtype, x.device, tuple(x.shape))
-        for x in (poses0.R, poses0.t, points0)))
+        (x.dtype, x.device, tuple(x.shape)) for x in (*poses0, points0)))
     entry = _GRAPHS[0]
     if entry is None or not entry.key.matches(key):
         _GRAPHS[0] = entry = None       # the last layout's graphs go first
@@ -727,69 +764,137 @@ def build_track_pairs(cam_idx, lm_idx, *, chunk=65536, dtype=torch.float32,
     return TrackPairs(pair_a=t(pa), pair_b=t(pb), pair_w=t(pw))
 
 
-class PairSegments(NamedTuple):
-    """The paired assembly's fixed summation order, built once a problem
-    from TrackPairs and the cameras: the live pairs (weight > 0) sorted
-    stably by their block (cam_a, cam_b) of M, each block's run cut into
-    segments of PAIR_SEGMENT pairs (padded with the index of a zero pair),
-    and each block summed from its segments by a ``sum_table``."""
-    pairs: torch.Tensor     # (n_seg, PAIR_SEGMENT) int64 flat pair ids
-    blocks: torch.Tensor    # (n_blocks,) int64 block ids cam_a C + cam_b
-    table: torch.Tensor     # (n_blocks, T) the segments of each block
-    chunk: int              # pairs computed at once
+PAIR_TREE = 16      # a block's segment sums added a group, each tree level
+PAIR_CHUNK = 2 ** 20    # pairs whose products are formed at once
+
+
+class PairTables(NamedTuple):
+    """The pair sum's fixed order, built once a problem by ``pair_tables``:
+    the pairs sorted stably by their block (cam_a, cam_b), cam_a <= cam_b,
+    each block's run cut into segments of PAIR_SEGMENT pairs (a == b apart,
+    which count half: S's block is M + Mᵀ), each segment padded with the
+    zero row; the segments' sums are added a PAIR_TREE-wide group at a
+    time, level after level, each level's order a table."""
+    a: torch.Tensor        # (n_seg, PAIR_SEGMENT) int64 row ids; pads: n_rows
+    b: torch.Tensor        # (n_seg, PAIR_SEGMENT) int64
+    seg_w: torch.Tensor    # (n_seg, 1, 1): 0.5 for pairs (a, a), else 1
+    levels: tuple          # (n_groups, PAIR_TREE) int64 tables, one a level
+    blocks: torch.Tensor   # (n_blocks,) int64 block ids cam_a C + cam_b
+    chunk: int             # segments formed at once
+
+
+def _tree_levels(item_block):
+    """The tables that sum the items of each block (item_block sorted) a
+    PAIR_TREE-wide group at a time, level after level, until each block
+    has one: ([(n_groups, PAIR_TREE) tables], the blocks in order)."""
+    levels = []
+    while True:
+        blocks, counts = torch.unique_consecutive(item_block,
+                                                  return_counts=True)
+        if not counts.numel() or int(counts.max()) <= 1:
+            return levels, blocks
+        n = item_block.shape[0]
+        per = (counts + PAIR_TREE - 1) // PAIR_TREE
+        gstart = torch.cumsum(per, 0) - per
+        block_of = torch.repeat_interleave(
+            torch.arange(blocks.shape[0], device=blocks.device), counts)
+        rank = (torch.arange(n, device=blocks.device)
+                - (torch.cumsum(counts, 0) - counts)[block_of])
+        table = torch.full((int(per.sum()) * PAIR_TREE,), n,
+                           dtype=torch.int64, device=blocks.device)
+        table[(gstart[block_of] + rank // PAIR_TREE) * PAIR_TREE
+              + rank % PAIR_TREE] = torch.arange(n, device=blocks.device)
+        levels.append(table.view(-1, PAIR_TREE))
+        item_block = torch.repeat_interleave(blocks, per)
+
+
+def pair_tables(parts, cam, n_cams, n_rows, dtype=torch.float32,
+                chunk=PAIR_CHUNK):
+    """The ``PairTables`` of the within-track pairs of rows on cameras cam
+    (n_rows,): parts yields them a piece at a time, (a, b) int64 row ids,
+    each unordered pair once, a == b included. Each pair is oriented so
+    that cam_a <= cam_b, then all are sorted stably by their block.
+    chunk: pairs whose products are formed at once."""
+    seg = PAIR_SEGMENT
+    C = n_cams
+    keyed = []
+    for a, b in parts:
+        ca, cb = cam[a], cam[b]
+        swap = ca > cb
+        keyed.append((torch.where(swap, b, a), torch.where(swap, a, b),
+                      2 * (torch.minimum(ca, cb) * C + torch.maximum(ca, cb))
+                      + (a == b)))
+    a = torch.cat([p[0] for p in keyed])
+    b = torch.cat([p[1] for p in keyed])
+    key = torch.cat([p[2] for p in keyed])
+    del keyed
+    key, order = torch.sort(key, stable=True)
+    a, b = a[order], b[order]
+    runs, counts = torch.unique_consecutive(key, return_counts=True)
+    per = (counts + seg - 1) // seg
+    sstart = torch.cumsum(per, 0) - per
+    run_of = torch.repeat_interleave(
+        torch.arange(runs.shape[0], device=key.device), counts)
+    rank = (torch.arange(key.shape[0], device=key.device)
+            - (torch.cumsum(counts, 0) - counts)[run_of])
+    n_seg = int(per.sum())
+    dest = sstart[run_of] * seg + rank
+    seg_a = torch.full((n_seg * seg,), n_rows, dtype=torch.int64,
+                       device=key.device)
+    seg_b = seg_a.clone()
+    seg_a[dest], seg_b[dest] = a, b
+    seg_key = torch.repeat_interleave(runs, per)
+    seg_w = torch.where(seg_key % 2 == 1, 0.5, 1.0).to(dtype)
+    levels, blocks = _tree_levels(seg_key // 2)
+    return PairTables(a=seg_a.view(n_seg, seg), b=seg_b.view(n_seg, seg),
+                      seg_w=seg_w.view(n_seg, 1, 1), levels=tuple(levels),
+                      blocks=blocks, chunk=max(chunk // seg, 1))
+
+
+def pair_mass(A, B, pairs: PairTables, n_cams, dtype=None):
+    """M (C, C, P, P): M[cam_a, cam_b] = the sum over the pairs (a, b) of
+    w A_aᵀ B_b, from rows A, B (n_rows + 1, r, P) whose last row is zero,
+    a chunk of segments at a time (peak memory O(chunk), whatever the
+    problem), each segment one (P x r 64)(r 64 x P) product in A's dtype,
+    the segments' sums added in `dtype` (default A's) in the tables' fixed
+    order. S's off-diagonal mass is M + Mᵀ."""
+    C = n_cams
+    r, P = A.shape[1:]
+    rows = r * PAIR_SEGMENT
+    n_seg = pairs.a.shape[0]
+    partial = A.new_empty((n_seg, P * P), dtype=dtype or A.dtype)
+    fa, fb = A.reshape(-1, r * P), B.reshape(-1, r * P)
+    for s0 in range(0, n_seg, pairs.chunk):
+        s1 = min(s0 + pairs.chunk, n_seg)
+        Xa = fa[pairs.a[s0:s1].reshape(-1)].view(s1 - s0, rows, P)
+        Xb = fb[pairs.b[s0:s1].reshape(-1)].view(s1 - s0, rows, P)
+        partial[s0:s1] = (torch.bmm(Xa.transpose(1, 2), Xb)
+                          * pairs.seg_w[s0:s1]).view(s1 - s0, P * P)
+    items = partial
+    for table in pairs.levels:
+        items = torch.cat([items, items.new_zeros((1, P * P))])[table].sum(1)
+    M = partial.new_zeros((C * C, P * P))
+    M[pairs.blocks] = items
+    return M.view(C, C, P, P)
 
 
 def pair_segments(pairs: TrackPairs, cam_idx, n_cams):
-    """The PairSegments of `pairs` over observations on cameras cam_idx."""
-    seg = PAIR_SEGMENT
-    cam = cam_idx.long()
-    a, b = pairs.pair_a.reshape(-1).long(), pairs.pair_b.reshape(-1).long()
-    n = a.shape[0]
-    live = torch.nonzero(pairs.pair_w.reshape(-1) > 0).squeeze(1)
-    dest = cam[a[live]] * n_cams + cam[b[live]]
-    dest, order = torch.sort(dest, stable=True)
-    ids = live[order]
-    blocks, counts = torch.unique_consecutive(dest, return_counts=True)
-    per_block = (counts + seg - 1) // seg
-    seg_start = torch.cumsum(per_block, 0) - per_block
-    block_of = torch.repeat_interleave(
-        torch.arange(blocks.shape[0], device=cam.device), counts)
-    rank = (torch.arange(ids.shape[0], device=cam.device)
-            - (torch.cumsum(counts, 0) - counts)[block_of])
-    n_seg = int(per_block.sum())
-    flat = torch.full((n_seg * seg,), n, dtype=torch.int64, device=cam.device)
-    flat[seg_start[block_of] * seg + rank] = ids
-    seg_block = torch.repeat_interleave(
-        torch.arange(blocks.shape[0], device=cam.device), per_block)
-    return PairSegments(pairs=flat.view(n_seg, seg), blocks=blocks,
-                        table=sum_table(seg_block, blocks.shape[0]),
-                        chunk=pairs.pair_a.shape[1])
+    """The ``PairTables`` of the live pairs of `pairs` (weight > 0) over
+    observations on cameras cam_idx."""
+    live = pairs.pair_w.reshape(-1) > 0
+    return pair_tables([(pairs.pair_a.reshape(-1)[live].long(),
+                         pairs.pair_b.reshape(-1)[live].long())],
+                       cam_idx.long(), n_cams, cam_idx.shape[0],
+                       pairs.pair_w.dtype, pairs.pair_a.shape[1])
 
 
-def _paired_S_mass(Y, W_obs, pairs: TrackPairs, segs: PairSegments, n_cams):
+def _paired_S_mass(Y, W_obs, segs: PairTables, n_cams):
     """The unsymmetrized off-diagonal Schur mass M[cam_a, cam_b] = sum of
-    w Y[a] W[b]ᵀ over the within-track pairs, chunk by chunk (peak memory
-    O(chunk 36) whatever L), each block summed in the fixed order of
-    `segs`. Returns M (C, C, 6, 6); S_off = -(M + M^T_blocks)."""
-    C = n_cams
-    zero = torch.zeros(1, dtype=torch.int64, device=Y.device)
-    a_all = torch.cat([pairs.pair_a.reshape(-1).long(), zero])
-    b_all = torch.cat([pairs.pair_b.reshape(-1).long(), zero])
-    w_all = torch.cat([pairs.pair_w.reshape(-1).to(Y.dtype),
-                       Y.new_zeros(1)])
-    n_seg = segs.pairs.shape[0]
-    step = max(segs.chunk // PAIR_SEGMENT, 1)
-    partial = Y.new_empty((n_seg, 36))
-    for s0 in range(0, n_seg, step):
-        idx = segs.pairs[s0:s0 + step].reshape(-1)
-        w = w_all[idx]
-        blk = (Y[a_all[idx]][:, :, None, :]
-               * W_obs[b_all[idx]][:, None, :, :]).sum(-1) * w[:, None, None]
-        blk = torch.where((w > 0)[:, None, None], blk, 0.0)
-        partial[s0:s0 + step] = blk.reshape(-1, PAIR_SEGMENT, 36).sum(1)
-    M = Y.new_zeros((C * C, 36))
-    M[segs.blocks] = table_sum(partial.T, segs.table)
-    return M.view(C, C, 6, 6)
+    w Y[a] W[b]ᵀ over the within-track pairs (``pair_mass`` of Yᵀ and
+    Wᵀ). Returns M (C, C, 6, 6); S_off = -(M + M^T_blocks)."""
+    zero = Y.new_zeros((1, 3, 6))
+    return pair_mass(torch.cat([Y.mT, zero]), torch.cat([W_obs.mT, zero]),
+                     segs, n_cams)
 
 
 def _schur_reduce_paired(Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx, lam,
@@ -809,7 +914,7 @@ def _schur_reduce_paired(Hpp, Hll, gp, gl, W_obs, cam_idx, lm_idx, lam,
     Hll_inv = _inv3x3(Hll_d)
 
     Y = torch.einsum("nij,njk->nik", W_obs, Hll_inv[lm])          # (N, 6, 3)
-    M = _paired_S_mass(Y, W_obs, pairs, segs, n_cams)
+    M = _paired_S_mass(Y, W_obs, segs, n_cams)
     S_off = -(M + M.permute(1, 0, 3, 2)).permute(0, 2, 1, 3)      # (C,6,C,6)
 
     b = _rhs(gp, gl, W_obs, Hll_inv, lm, tables.cam)

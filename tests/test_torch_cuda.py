@@ -41,7 +41,10 @@ iterations and costs, returned tensors a later solve leaves alone, four
 graphs captured on a layout's first solve and none after (anew for
 another fixed mask or layout, none for a solve of one iteration, anew
 after ``schur.release_graphs()``), one memory pool for every layout's
-graphs, and one sync an iteration."""
+graphs, and one sync an iteration; BAL's 9-wide ba_assemble over a
+problem's track-length buckets against its plain version (1e-4 in f32,
+1e-10 in f64, two launches the same bits) and the graphed BAL solve
+(``schur_bal.solve_bal``) against its eager loop, the same bits."""
 
 import numpy as np
 import pytest
@@ -1392,3 +1395,95 @@ def test_graphed_solve_syncs_once_an_iteration(path):
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     assert len(syncs) == out.it + (0 if path == "A" else 2), [
         str(w.message) for w in syncs]
+
+
+# ---- BAL's 9-parameter cameras (solvers/schur_bal.py) ----
+
+def _bal_problem(dtype, dev, n_cams=12, n_points=400, n_obs=1600, seed=3):
+    """(cameras0, points0, fixed, work) of a small generated BAL scene
+    (``benchmark/scenes/bal_city.py``) from a seeded start."""
+    from benchmark.harness import scenes
+    from benchmark.scenes import bal_city
+    from slam_tricks_tpu_torch.residuals import bal
+    from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
+    from slam_tricks_tpu_torch.solvers import schur_bal
+    spec = dict(n_cams=n_cams, n_points=n_points, n_observations=n_obs,
+                seed=seed, max_track=n_cams)
+    sc = bal_city.make(**spec)
+    f64 = torch.float64
+    fixed = torch.as_tensor(scenes.fixed_mask(n_cams, "first_last"),
+                            device=dev)
+    R, t, X = scenes.perturbed_start(
+        torch.as_tensor(sc.R, dtype=f64, device=dev),
+        torch.as_tensor(sc.t, dtype=f64, device=dev),
+        torch.as_tensor(sc.points, dtype=f64, device=dev), fixed,
+        {"rot": 0.002, "trans": 0.02, "point": 0.02}, seed + 1)
+    gen = torch.Generator().manual_seed(seed + 2)
+    K = torch.as_tensor(bal_city.intrinsics(**spec), dtype=f64)
+    K = K + torch.randn(K.shape, generator=gen, dtype=f64) * torch.tensor(
+        [1.0, 0.002, 0.0005], dtype=f64) * (~fixed.cpu())[:, None]
+    obs = BAObservations(
+        cam_idx=torch.as_tensor(sc.cam.astype(np.int32), device=dev),
+        lm_idx=torch.as_tensor(sc.lm.astype(np.int32), device=dev),
+        uv=torch.as_tensor(sc.uv, dtype=dtype, device=dev),
+        weight=torch.ones(sc.cam.shape[0], dtype=dtype, device=dev))
+    work = schur_bal.build_bal_work(obs, n_cams, n_points, dtype=dtype)
+    cams = bal.BALCameras(R.to(dtype), t.to(dtype), K.to(dtype).to(dev))
+    return cams, X.to(dtype), fixed, work
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
+                                        (torch.float64, 1e-10)])
+def test_ba_assemble9_kernel_matches_plain(dtype, tol):
+    """The 9-wide kernel over a problem's bucket grids, the camera sums
+    added grid after grid, against the plain version on the CPU; two
+    launches give the same bits."""
+    from slam_tricks_tpu_torch.ops.ba_assemble import (
+        linearize_assemble_grids)
+    dev = require_cuda()
+    cams, X, _, work = _bal_problem(dtype, dev)
+    pts = X[work.perm]
+    args = (cams.R.reshape(-1, 9).contiguous(), cams.t, cams.intr, pts)
+    got = linearize_assemble_grids(*args, work.grids)
+    again = linearize_assemble_grids(*args, work.grids)
+    cpu = [g._replace(uv0=g.uv0.cpu(), uv1=g.uv1.cpu(), w=g.w.cpu(),
+                      cam_of_slot=g.cam_of_slot.cpu(), cam_index=None)
+           for g in work.grids]
+    ref = linearize_assemble_grids(*(a.cpu() for a in args), cpu)
+    assert len(work.grids) >= 3
+    for a, b, c in zip(got[:4] + (got[5],), ref[:4] + (ref[5],),
+                       again[:4] + (again[5],)):
+        assert rel_err(a, b) < tol
+        assert torch.equal(a, c)
+    for a, b, c in zip(got[4], ref[4], again[4]):
+        assert rel_err(a, b) < tol
+        assert torch.equal(a, c)
+
+
+def test_graphed_bal_solve_has_the_eager_loops_bits():
+    """Two graphed f32 BAL solves give the eager loop's final cameras,
+    points, cost and costs, bit for bit; the reduced system is three
+    graphs, so a layout's first solve captures six."""
+    from slam_tricks_tpu_torch.manifolds import se3
+    from slam_tricks_tpu_torch.solvers import schur_bal
+    dev = require_cuda()
+    cams, X, fixed, work = _bal_problem(torch.float32, dev)
+    ref_costs = []
+    ref = schur.lm_loop(
+        cams, X[work.perm],
+        lambda c, x: schur_bal._quantities(c, x, work),
+        lambda b, lam: schur_bal._solve(b, lam, fixed, work),
+        max_iters=6, costs=ref_costs)
+    schur.release_graphs()
+    c0 = _counters()
+    for _ in range(2):
+        costs = []
+        out = schur_bal.solve_bal(se3.SE3(cams.R, cams.t), cams.intr, X,
+                                  work, fixed_mask=fixed, max_iters=6,
+                                  costs=costs)
+        assert out.it == ref.it >= 2
+        for a, b in zip(tuple(out.poses) + (out.points, out.cost),
+                        tuple(ref.poses) + (ref.points[work.inv], ref.cost)):
+            assert torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(costs, ref_costs))
+    assert _counters()[0] - c0[0] == 6

@@ -157,17 +157,24 @@ def test_pair_segments_cover_every_pair_once():
     C = prob[0].n_cams
     pairs = schur.build_track_pairs(o.cam_idx, o.lm_idx, chunk=257, dtype=f64)
     segs = schur.pair_segments(pairs, o.cam_idx, C)
-    n = pairs.pair_a.numel()
-    ids = segs.pairs.reshape(-1)
-    live = ids[ids < n]
-    want = torch.nonzero(pairs.pair_w.reshape(-1) > 0).squeeze(1)
-    np.testing.assert_array_equal(np.sort(live.numpy()), want.numpy())
-    # every segment holds one block's pairs
+    n = o.cam_idx.shape[0]
+    a, b = segs.a.reshape(-1), segs.b.reshape(-1)
+    live = a < n
+    assert torch.equal(live, b < n)
+    got = torch.sort(torch.minimum(a[live], b[live]) * n
+                     + torch.maximum(a[live], b[live])).values
+    w = pairs.pair_w.reshape(-1) > 0
+    pa, pb = pairs.pair_a.reshape(-1)[w].long(), pairs.pair_b.reshape(-1)[w].long()
+    want = torch.sort(torch.minimum(pa, pb) * n + torch.maximum(pa, pb)).values
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # every segment holds one block's pairs, cam_a <= cam_b, all a == b or
+    # none (they count half)
     cam = o.cam_idx.long()
-    a, b = pairs.pair_a.reshape(-1).long(), pairs.pair_b.reshape(-1).long()
-    for row in segs.pairs:
-        r = row[row < n]
-        assert torch.unique(cam[a[r]] * C + cam[b[r]]).numel() == 1
+    for ra, rb, sw in zip(segs.a, segs.b, segs.seg_w.reshape(-1)):
+        ra, rb = ra[ra < n], rb[rb < n]
+        assert torch.unique(cam[ra] * C + cam[rb]).numel() == 1
+        assert bool((cam[ra] <= cam[rb]).all())
+        assert bool(((ra == rb) == (sw == 0.5)).all())
 
 
 def _solver_kwargs(solver, jo, o, L):
