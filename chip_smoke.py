@@ -14,7 +14,8 @@ the CPU path (paths A, B, L and I), then drives the port's paths
 through the kernels, each with every launch count set to 0 just before it:
 
 - A, the headline bundle adjustment (st20 cube room: 96 cameras, 2400
-  landmarks, 83,338 observations, 20 LM iterations, float32, TF32 off), and
+  landmarks, 83,338 observations, 20 LM iterations, float32, TF32 off,
+  spd_solve at n = 576, none of its calls on the large-n kernel), and
   again, which must give the same bits;
 - B, the large-C trajectory bundle adjustment (1024 cameras, 200,000
   landmarks, tracks of 8, 1,600,000 observations, 12 LM iterations, float32,
@@ -33,7 +34,8 @@ through the kernels, each with every launch count set to 0 just before it:
   its first accepted step's cost held to path A's; and V, the posterior
   covariances at F's state;
 - D, schur.solve_ba "paired", the exact dense comparator, on path B's
-  scene (about 7.2 M within-track pairs, S of n = 6144), 5 iterations;
+  scene (about 7.2 M within-track pairs, S of n = 6144), 5 iterations,
+  every spd_solve call on the large-n kernel (spd_solve.BLOCKED_CALLS);
 - P, schur_flat.solve_ba_flat "pcg" on path B's scene, 5 iterations;
 - W, the sliding-window smoother on path B's scene (windows of 24 cameras,
   shift 12, 8 anchors, 15 iterations a window), in float32 and float64,
@@ -44,7 +46,8 @@ through the kernels, each with every launch count set to 0 just before it:
   against plain at path P's grid;
 - G, schur_flat_sm at large C (1024 cameras, 7200 landmarks, K = 464
   slots a landmark), 12 iterations, and again, which must give the same
-  bits; spd_solve at n = 6144 (paths D's and G's systems) against plain;
+  bits; spd_solve at n = 6144 (paths D's and G's systems, the large-n
+  kernel) against plain;
 - V on 20- and 64-camera trajectories in float64: the dense covariances
   against banded_flat's (gated on 20 cameras, reported on 64);
 - the pose graphs, each twice where it must give the same bits: Q, the
@@ -128,8 +131,9 @@ through the kernels, each with every launch count set to 0 just before it:
   power-of-two track-length buckets, float32): ba_assemble's 9-wide
   kernel over every bucket grid against the grids' plain version, two
   launches bitwise; spd_solve at n = 3,204 on the start's Jacobi-scaled
-  reduced camera system against plain and the library; schur_bal.solve_bal,
-  10 LM iterations through the CUDA graphs, under the cell's gate, and
+  reduced camera system (the large-n kernel) against plain and the
+  library; schur_bal.solve_bal, 10 LM iterations through the CUDA graphs,
+  every spd_solve call on the large-n kernel, under the cell's gate, and
   again, which must give the same bits;
 - E, the st1 undistortion of 8,388,608 float32 pixels, 5 Newton steps
   (before it, the undistort kernel against plain at its edges: a pointer
@@ -2656,7 +2660,7 @@ def bal_paths(dev, run_phase, check_spd, phases):
     from benchmark.harness import scenes
     from benchmark.scenes import bal_city
     from slam_tricks_tpu_torch.manifolds import se3
-    from slam_tricks_tpu_torch.ops import ba_assemble
+    from slam_tricks_tpu_torch.ops import ba_assemble, spd_solve
     from slam_tricks_tpu_torch.residuals import bal
     from slam_tricks_tpu_torch.sim.ba_scene import BAObservations
     from slam_tricks_tpu_torch.solvers import schur, schur_bal
@@ -2755,17 +2759,24 @@ def bal_paths(dev, run_phase, check_spd, phases):
         se3.SE3(R, t), K, X, work, fixed_mask=fixed,
         max_iters=traffic["lm_iters"], lambda_init=cfg["lambda_init"],
         costs=costs)
+    blocked = spd_solve.BLOCKED_CALLS
     out, cf, launches, ms_it = run_phase("path BAL", solve)
+    blocked = spd_solve.BLOCKED_CALLS - blocked
     _check_costs(cf, traffic["gate"]["final_cost"], "path BAL")
+    _log("path BAL", f"spd_solve (n = {9 * C}): {blocked} of "
+                     f"{launches['spd_solve']} calls on the large-n kernel")
     if (launches["ba_assemble"] < len(grids) * out.it
-            or launches["spd_solve"] < 2 * out.it):
+            or launches["spd_solve"] < 2 * out.it
+            or blocked != launches["spd_solve"]):
         raise AssertionError(f"path BAL skipped a kernel: {launches} in "
-                             f"{out.it} iterations of {len(grids)} grids")
+                             f"{out.it} iterations of {len(grids)} grids, "
+                             f"{blocked} on the large-n kernel")
     out2, _, launches2, ms_it2 = run_phase("path BAL again", solve)
     check_same_bits(out, out2, "path BAL")
     phases["BAL"] = {"ms_per_lm_iter": ms_it, "ms_per_lm_iter_again": ms_it2,
                      "iters": out.it, "final_cost": cf[-1],
-                     "launches": launches, "launches_again": launches2}
+                     "launches": launches, "blocked_calls": blocked,
+                     "launches_again": launches2}
     return {"assemble": k1, "spd": {"path_BAL": k2}}
 
 
@@ -2896,8 +2907,10 @@ def main():
     def check_spd(S_, b_, label):
         """Kernel 2 against plain on (S_, b_) (the residual), timed with
         the library's Cholesky beside it: a dict of the kernels line's
-        numbers."""
+        numbers, "blocked" 1 where the call took the large-n kernel."""
+        blocked0 = spd_solve.BLOCKED_CALLS
         x_k = spd_solve.spd_solve(S_, b_)
+        blocked = spd_solve.BLOCKED_CALLS - blocked0
         x_p = spd_solve.spd_solve_plain(S_, b_)
         S64, b64 = S_.double(), b_.double()
         res_k = float((S64 @ x_k.double() - b64).norm() / b64.norm())
@@ -2905,8 +2918,9 @@ def main():
         del S64
         diff = _rel(x_k, x_p)
         eps = SPD_RES_EPS if S_.dtype == torch.float32 else 1e-14
-        _log("spd_solve", f"{label} n={S_.shape[0]} {S_.dtype}: |Sx-b|/|b| "
-                          f"kernel {res_k:.3e} plain {res_p:.3e}; "
+        _log("spd_solve", f"{label} n={S_.shape[0]} {S_.dtype} "
+                          f"({'large-n' if blocked else 'small-n'} kernel): "
+                          f"|Sx-b|/|b| kernel {res_k:.3e} plain {res_p:.3e}; "
                           f"max|x-x_plain|/max|x_plain| {diff:.3e}")
         if not res_k <= SPD_RES_FACTOR * res_p + eps:
             raise AssertionError(f"spd_solve {label}: residual {res_k} > "
@@ -2923,7 +2937,8 @@ def main():
                           f"({device_ms:.4f} ms on the card alone); plain "
                           f"torch {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
                           f"bound {bound_ms:.4f} ms ({by})")
-        return {"n": n_, "max_abs_err": float((x_k - x_p).abs().max()),
+        return {"n": n_, "blocked": blocked,
+                "max_abs_err": float((x_k - x_p).abs().max()),
                 "residual": res_k, "plain_residual": res_p, "ms": ms,
                 "plain_ms": plain_ms, "device_ms": device_ms,
                 "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
@@ -3051,6 +3066,7 @@ def main():
     solve_a(2)      # warm-up
     torch.cuda.synchronize()
     _reset_counts(*ops)
+    blocked_a = spd_solve.BLOCKED_CALLS
     costs = []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3071,6 +3087,12 @@ def main():
     _log("path A", f"basin reached: {basin}")
     if launches_a["ba_assemble"] < 21 or launches_a["spd_solve"] < 20:
         raise AssertionError(f"path A skipped a kernel: {launches_a}")
+    blocked_a = spd_solve.BLOCKED_CALLS - blocked_a
+    _log("path A", f"spd_solve (n = {6 * C}): {blocked_a} of "
+                   f"{launches_a['spd_solve']} calls on the large-n kernel")
+    if blocked_a:
+        raise AssertionError(f"path A: {blocked_a} spd_solve calls at n = "
+                             f"{6 * C} took the large-n kernel")
     _check_costs(c, FINAL_COST_MAX, "path A")
     if (final.poses.R.shape != (C, 3, 3) or final.points.shape != (L, 3)
             or not torch.isfinite(final.points).all()
@@ -3568,16 +3590,22 @@ def main():
     solve_d = lambda iters, costs=None: schur.solve_ba(  # noqa: E731
         tposes0, tpoints0, tobs, fixed_mask=tfixed, max_iters=iters,
         linear_solver="paired", track_pairs=pairs, costs=costs)
+    blocked_d = spd_solve.BLOCKED_CALLS
     final_d, cf, launches_d, ms = run_phase("path D", lambda costs: solve_d(
         5, costs))
+    blocked_d = spd_solve.BLOCKED_CALLS - blocked_d
     _log("path D", "costs " + " ".join(f"{v:.4e}" for v in cf))
-    if launches_d["spd_solve"] != final_d.it or final_d.it < 1:
-        raise AssertionError(f"path D: launches {launches_d}")
+    _log("path D", f"spd_solve (n = {6 * CB}): {blocked_d} of "
+                   f"{launches_d['spd_solve']} calls on the large-n kernel")
+    if (launches_d["spd_solve"] != final_d.it or final_d.it < 1
+            or blocked_d != launches_d["spd_solve"]):
+        raise AssertionError(f"path D: launches {launches_d}, {blocked_d} "
+                             f"on the large-n kernel")
     _check_costs(cf, D_FINAL_COST_MAX, "path D")
     check_state(final_d, CB, LB_, "path D")
     phases["D"] = {"ms_per_lm_iter": ms, "iters": final_d.it,
                    "final_cost": cf[-1], "launches": launches_d,
-                   "pairs": n_pairs}
+                   "blocked_calls": blocked_d, "pairs": n_pairs}
     if args.profile is not None:
         _profile(lambda: solve_d(2), args.profile / "path_d.txt",
                  "path D, 2 LM iterations")

@@ -2,8 +2,9 @@
 // block in registers, a thread a column runs the triangular solves in
 // registers, and a block solves an SPD block held in shared (or
 // block-private global) memory against many right-hand sides
-// (tridiag_solve.cu); the pivot rule, the warp sum and the cooperative
-// launch (spd_solve.cu too).
+// (tridiag_solve.cu), or factors it and runs the forward half
+// (spd_solve_blocked.cu's panels); the pivot rule, the warp sum and the
+// cooperative launch (spd_solve.cu too).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -146,14 +147,14 @@ __device__ void sub_product(T* P, int ld, int i0, int i1, int c0, int c1,
 
 // The whole block: P (m rows, m a multiple of 32, row stride ld) holds an
 // SPD m x m block A (upper triangle read) in columns [0, m) and na
-// right-hand sides in columns [m, m + na); the right-hand sides become
-// A^-1 times themselves. Blocked right-looking Cholesky A = U^T U by panels
-// of 32 rows (warp factor, then a thread a column for U^-T on everything to
-// the right, then the trailing update by sub_product), then U^-1 by panels
-// from the last. A pivot d <= 0 gives NaN. sc: m values of scratch. Starts
-// and ends with a barrier.
+// right-hand sides in columns [m, m + na). Blocked right-looking Cholesky
+// A = U^T U by panels of 32 rows (warp factor, then a thread a column for
+// U^-T on everything to the right, then the trailing update by
+// sub_product): the upper triangle of columns [0, m) becomes U, the
+// right-hand sides U^-T times themselves, and sc[p] = 1 / U_pp. A pivot
+// d <= 0 gives NaN. Starts with a barrier and ends without one.
 template <typename T>
-__device__ void chol_solve_block(T* P, int ld, int m, int na, T* sc) {
+__device__ void chol_forward_block(T* P, int ld, int m, int na, T* sc) {
   const int warp = threadIdx.x >> 5;
   for (int k0 = 0; k0 < m; k0 += kPanel) {
     const int k1 = k0 + kPanel;
@@ -167,6 +168,14 @@ __device__ void chol_solve_block(T* P, int ld, int m, int na, T* sc) {
     // the trailing update: P[i, c] -= U[panel, i]^T U[panel, c], c >= i
     sub_product<T, true, true>(P, ld, k1, m, k1, m + na, k0, k0, kPanel);
   }
+}
+
+// The whole block: as chol_forward_block, then U^-1 by panels from the
+// last, so the right-hand sides become A^-1 times themselves. sc: m values
+// of scratch. Starts and ends with a barrier.
+template <typename T>
+__device__ void chol_solve_block(T* P, int ld, int m, int na, T* sc) {
+  chol_forward_block(P, ld, m, na, sc);
   // 1 / U_pp = 1 / sqrt(d_p) = s_p under the NaN rule
   for (int k0 = m - kPanel; k0 >= 0; k0 -= kPanel) {
     const int k1 = k0 + kPanel;

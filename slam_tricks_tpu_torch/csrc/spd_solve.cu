@@ -1,4 +1,6 @@
-// Dense SPD solve S x = b (the reduced camera system), for Hopper (sm_90a).
+// Dense SPD solve S x = b (the reduced camera system), for Hopper (sm_90a),
+// at n < BLOCKED_MIN_N = 1536 (ops/spd_solve.py); spd_solve_blocked.cu
+// takes larger n, where this design starves the trailing updates.
 //
 // Replaces: slam_tricks_tpu/ops/pallas_chol.py::_kernel (called by
 // chol_solve_padded / chol_solve): upper Cholesky S = U^T U, read from the

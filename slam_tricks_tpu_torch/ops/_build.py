@@ -34,7 +34,8 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #   C, K, L, landmark row stride, accumulate, loss kind, loss param, its
 #   square, Hpp, gp, Hll, gl, W, cost, scratch, device, stream
 _BA = [_P] * 11 + [_I] * 7 + [_D, _D] + [_P] * 7 + [_I, _P]
-# spd_solve: S, b, A (scratch), yz (scratch), x, flags (scratch), n, stream
+# spd_solve and spd_solve_blocked: S, b, A (scratch), yz (scratch), x,
+#   flags (scratch), n, stream
 _SPD = [_P] * 6 + [_I, _P]
 # tridiag_solve: D, E, r, store, lev (scratch), work (tile scratch or NULL),
 #                x, G, m, q, stream
@@ -51,6 +52,7 @@ SIGNATURES = {
     "ba_assemble_f32": _BA, "ba_assemble_f64": _BA,
     "ba_assemble9_f32": _BA, "ba_assemble9_f64": _BA,
     "spd_solve_f32": _SPD, "spd_solve_f64": _SPD,
+    "spd_solve_blocked_f32": _SPD, "spd_solve_blocked_f64": _SPD,
     "tridiag_solve_f32": _TRI, "tridiag_solve_f64": _TRI,
     "undistort_f32": _undistort(ctypes.c_float),
     "undistort_f64": _undistort(ctypes.c_double),

@@ -1,15 +1,21 @@
 """Dense SPD solve S x = b of the reduced camera system.
 
-``spd_solve`` runs the CUDA kernel ``csrc/spd_solve.cu`` for CUDA tensors and
-the plain torch version ``spd_solve_plain`` for CPU tensors. The kernel
-replaces ``slam_tricks_tpu/ops/pallas_chol.py::_kernel`` (called by
+``spd_solve`` runs a CUDA kernel for CUDA tensors and the plain torch
+version ``spd_solve_plain`` for CPU tensors. Both kernels replace
+``slam_tricks_tpu/ops/pallas_chol.py::_kernel`` (called by
 ``chol_solve_padded`` / ``chol_solve``): a right-looking tiled Cholesky
 with a lookahead, S = UᵀU read from the upper triangle of S, with both
 substitutions fused, in one cooperative launch of a persistent grid (at
-most one block an SM, one grid barrier a tile row). It works in place on a
-device-memory copy of S cut into 32 x 32 tiles; n needs no padding. It
-takes float32 and float64 and any n <= ``MAX_N`` = 46340, where n² still
-fits the kernel's 32-bit element offsets; shared memory does not bound n.
+most one block an SM, one grid barrier a tile row), working on a
+device-memory copy of S. Which one runs is a rule on n alone
+(``blocked_path``): below ``BLOCKED_MIN_N``, ``csrc/spd_solve.cu``, 32 x 32
+tiles, bound by the chain of tile rows; from it on,
+``csrc/spd_solve_blocked.cu``, 64-row panels run ahead of register-blocked
+trailing updates on every SM, bound by the updates. n needs no padding.
+Both take float32 and float64 and any n <= ``MAX_N`` = 46340, where n²
+still fits the small kernel's 32-bit element offsets (the large kernel's
+padded copy, (64 ceil(n / 64))², fits unsigned 32-bit ones); shared memory
+does not bound n.
 
 On a matrix that is not positive definite (a pivot <= 0 or not finite)
 both return NaN, as the JAX package's default XLA Cholesky and
@@ -22,10 +28,22 @@ import torch
 
 from slam_tricks_tpu_torch.ops import _build
 
-LAUNCHES = 0    # kernel launches since the last reset (chip_smoke.py reads it)
+LAUNCHES = 0        # kernel launches since the last reset (chip_smoke.py reads it)
+BLOCKED_CALLS = 0   # of those, the calls that took the large-n kernel
 
 MAX_N = 46340   # n * n < 2**31: the kernel's element offsets are 32-bit ints
-TILE = 32       # the kernel's tile: a lane a column
+TILE = 32       # spd_solve.cu's tile: a lane a column
+BLOCKED_TILE = 64   # spd_solve_blocked.cu's tile row
+# The crossover, measured on the H100 (PERF.md §6): spd_solve_blocked.cu
+# is faster from n = 768 in float32 and from 1536 in float64 (at 1280 it
+# takes 0.699 ms to spd_solve.cu's 0.604); from 1536 on, in both. Every
+# n <= 672 the port's solvers use stays on spd_solve.cu.
+BLOCKED_MIN_N = 1536
+
+
+def blocked_path(n):
+    """True where an n x n system takes the large-n kernel."""
+    return n >= BLOCKED_MIN_N
 
 
 def spd_solve_plain(S, b):
@@ -53,8 +71,8 @@ def _check_out(out, b, name):
             f"{tuple(out.shape)} on {out.device}")
 
 
-def _launch(S, b, out=None):
-    global LAUNCHES
+def _launch(S, b, out, blocked):
+    global LAUNCHES, BLOCKED_CALLS
     dtype, device = S.dtype, S.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"spd_solve kernel takes float32/float64, not {dtype}")
@@ -70,21 +88,28 @@ def _launch(S, b, out=None):
             f"one device; got S {tuple(S.shape)} {S.dtype} {S.device}, "
             f"b {tuple(b.shape)} {b.dtype} {b.device}")
     lib = _build.library()
-    nt = -(-n // TILE)
-    # the factor's scratch: the copy of S, then the nt inverted diagonal tiles
-    A = torch.empty(n * n + nt * TILE * TILE, dtype=dtype, device=device)
-    yz = torch.empty(2 * n, dtype=dtype, device=device)
+    tile = BLOCKED_TILE if blocked else TILE
+    nt = -(-n // tile)
+    # the factor's scratch: the copy of S (padded to whole tiles on the
+    # large path), then nt diagonal tiles; y and z of the same length
+    m = nt * tile if blocked else n
+    A = torch.empty(m * m + nt * tile * tile, dtype=dtype, device=device)
+    yz = torch.empty(2 * m, dtype=dtype, device=device)
     if out is not None:
         _check_out(out, b, "spd_solve")
     x = torch.empty_like(b) if out is None else out
-    flags = torch.empty(nt, dtype=torch.int32, device=device)
-    fn = lib.spd_solve_f32 if dtype == torch.float32 else lib.spd_solve_f64
+    # the back substitution's flags; on the large path, a tile counter a step
+    flags = torch.empty(2 * nt if blocked else nt, dtype=torch.int32,
+                        device=device)
+    name = "spd_solve_blocked" if blocked else "spd_solve"
+    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
     with torch.cuda.device(device):
         rc = fn(S.data_ptr(), b.data_ptr(), A.data_ptr(), yz.data_ptr(),
                 x.data_ptr(), flags.data_ptr(), n,
                 torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "spd_solve")
+    _build.check(rc, name)
     LAUNCHES += 1
+    BLOCKED_CALLS += blocked
     return x
 
 
@@ -100,4 +125,4 @@ def spd_solve(S, b, out=None):
         return out.copy_(x)
     if S.device.type != "cuda":
         raise ValueError(f"spd_solve: no kernel for device {S.device}")
-    return _launch(S, b, out)
+    return _launch(S, b, out, blocked_path(S.shape[0]))

@@ -230,37 +230,46 @@ def _spd_system(n, dtype, device):
 # 577 = 18 * 32 + 1 leaves a ragged last tile of one row; 1 and 31 are one
 # ragged tile; 300 in f64 is ragged too; 6144 is the reduced camera system
 # of 1024 cameras (schur.solve_ba's paired comparator, schur_flat_sm at
-# large C)
-@pytest.mark.parametrize("n, dtype, tol", [
-    (36, torch.float32, 5e-6), (200, torch.float32, 5e-6),
-    (576, torch.float32, 5e-6), (577, torch.float32, 5e-6),
-    (1, torch.float32, 5e-6), (31, torch.float32, 5e-6),
-    (300, torch.float64, 1e-9), (577, torch.float64, 1e-9),
-    (6144, torch.float32, 5e-6)])
-def test_spd_solve_kernel_matches_plain(n, dtype, tol):
+# large C); the large-n kernel (blocked 1) at BAL Dubrovnik's 3204 = 50 *
+# 64 + 4 (a ragged 4-row last panel), at the crossover, and at 2049 = 32 *
+# 64 + 1 in f64; the small kernel one below the crossover
+@pytest.mark.parametrize("n, dtype, tol, blocked", [
+    (36, torch.float32, 5e-6, 0), (200, torch.float32, 5e-6, 0),
+    (576, torch.float32, 5e-6, 0), (577, torch.float32, 5e-6, 0),
+    (1, torch.float32, 5e-6, 0), (31, torch.float32, 5e-6, 0),
+    (300, torch.float64, 1e-9, 0), (577, torch.float64, 1e-9, 0),
+    (6144, torch.float32, 5e-6, 1), (3204, torch.float32, 5e-6, 1),
+    (spd_solve.BLOCKED_MIN_N, torch.float32, 5e-6, 1),
+    (spd_solve.BLOCKED_MIN_N - 1, torch.float32, 5e-6, 0),
+    (2049, torch.float64, 1e-9, 1)])
+def test_spd_solve_kernel_matches_plain(n, dtype, tol, blocked):
     dev = require_cuda()
     S, b = _spd_system(n, dtype, dev)
     ref = spd_solve.spd_solve_plain(S, b)
-    before = spd_solve.LAUNCHES
+    before = (spd_solve.LAUNCHES, spd_solve.BLOCKED_CALLS)
     x = spd_solve.spd_solve(S, b)
     torch.cuda.synchronize()
-    assert spd_solve.LAUNCHES == before + 1
+    assert spd_solve.LAUNCHES == before[0] + 1
+    assert spd_solve.BLOCKED_CALLS == before[1] + blocked
     assert x.dtype == dtype
     assert rel_err(x, ref) < tol
 
 
 def test_spd_solve_kernel_at_size_limit():
     """n = MAX_N, the largest the kernel takes (n * n < 2**31), solved on
-    the card: S diagonally dominant (off-diagonal entries in [-1, 1],
-    diagonal n), so SPD with a condition number below 3; held by the
-    residual |Sx - b| / |b| < 1e-4 in f32."""
+    the card by the large-n kernel (its padded copy 46,400²): S diagonally
+    dominant (off-diagonal entries in [-1, 1], diagonal n), so SPD with a
+    condition number below 3; held by the residual |Sx - b| / |b| < 1e-4
+    in f32."""
     dev = require_cuda()
     n = spd_solve.MAX_N
     gen = torch.Generator(device=dev).manual_seed(0)
     S = torch.rand((n, n), generator=gen, device=dev).mul_(2).sub_(1)
     S.diagonal().fill_(float(n))
     b = torch.rand(n, generator=gen, device=dev)
+    before = spd_solve.BLOCKED_CALLS
     x = spd_solve.spd_solve(S, b)   # reads the upper triangle only
+    assert spd_solve.BLOCKED_CALLS == before + 1
     U = torch.triu(S)
     res = U @ x + torch.triu(S, 1).T @ x - b
     del U
@@ -276,12 +285,15 @@ def test_spd_solve_kernel_refuses_too_large_n():
 
 
 @pytest.mark.parametrize("n, bad", [(3, 1), (200, 7), (200, 199), (577, 576),
-                                    (577, 300)])
+                                    (577, 300), (3204, 7), (3204, 1600),
+                                    (3204, 3202)])
 def test_spd_solve_kernel_non_spd_gives_nan(n, bad):
     """A pivot <= 0 (row `bad` of an SPD matrix made negative: in the first
-    tile, the last, the ragged last tile of 577 or a middle one) gives NaN
-    in every value, as the plain version does, in f32 and f64; the
-    cooperative grid still reaches every barrier (the call returns)."""
+    tile, the last, the ragged last tile of 577 or a middle one; at 3204,
+    on the large-n kernel, in the first 64-row panel, a middle one and the
+    ragged 4-row last one) gives NaN in every value, as the plain version
+    does, in f32 and f64; the cooperative grid still reaches every barrier
+    (the call returns)."""
     dev = require_cuda()
     for dtype in (torch.float32, torch.float64):
         S, b = _spd_system(n, dtype, dev)

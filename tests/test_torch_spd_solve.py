@@ -79,3 +79,16 @@ def test_size_limit():
     for n in (0, spd.MAX_N + 1):
         with pytest.raises(ValueError, match="outside"):
             spd.check_size(n)
+
+
+def test_path_rule():
+    """The kernel is chosen by n alone. Every n <= 672 the port's solvers
+    use (st20's 180, the distributed solvers' 576, the pose graphs' 240 and
+    672, the VI window's 144, K64's 582, N's 294, the examples' 12 to 672)
+    takes spd_solve.cu; BAL Dubrovnik's 3,204 and paths D and G's 6,144
+    take spd_solve_blocked.cu, as does every n from the crossover on."""
+    assert 672 < spd.BLOCKED_MIN_N <= 3204
+    assert not any(spd.blocked_path(n) for n in range(1, 673))
+    assert not spd.blocked_path(spd.BLOCKED_MIN_N - 1)
+    for n in (spd.BLOCKED_MIN_N, 3204, 6144, spd.MAX_N):
+        assert spd.blocked_path(n)
